@@ -1,0 +1,234 @@
+"""Distributed 3-D FFT entry points: build a stage schedule, run it.
+
+Port of ``repro/core/distributed.py`` (the complex transform).  Mapping
+from the paper's MPI+OpenMP design to PyTorch:
+
+  row/column MPI communicators  ->  mesh axes: one process group each
+                                    (``core/mesh.py``)
+  MPI_Alltoall                  ->  ``all_to_all_single`` (split/concat
+                                    axes express the pack/unpack steps
+                                    2,4,6,8)
+  OpenMP comm thread + K chunks ->  K chunks per stage, emitted as a
+                                    depth-1 software pipeline: chunk i's
+                                    collective is in flight (async) while
+                                    chunk i+1's FFT runs.  K=1 reproduces
+                                    options 1/2, K>=2 options 3/4.
+                                    ``transpose_impl="ring"`` decomposes
+                                    each transpose into P-1 point-to-point
+                                    rounds with the fused pack/unpack
+                                    kernel (``kernels/transpose_pack.py``).
+  FFTW plan reuse               ->  plan-constant caching (plan.py);
+                                    disabled = "multiple plans" options 1/3.
+
+The pipeline itself is data: ``schedule.build_c2c`` builds it and
+``schedule.run_schedule`` executes it on each rank's local block.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+
+from repro_torch.core import local_fft
+from repro_torch.core import schedule as schedule_lib
+from repro_torch.core.decomposition import Decomposition
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTOptions:
+    """Knobs reproducing the paper's option matrix (§5.1) plus extensions.
+
+    overlap_k      CROFT's K: chunks per (FFT -> all_to_all) stage. 1 = no
+                   overlap (options 1/2); 2 = CROFT's shipped default.
+    plan_cache     True = "single plan" (options 2/4); False = re-materialize
+                   twiddles per call ("multiple plans", options 1/3).
+    local_impl     "matmul" (four-step) | "stockham" | "xla" (the library
+                   FFT) | "pallas" (the hand-written four-step Hopper
+                   kernel; the reference's name, kept so tokens match);
+                   or a 3-tuple of those, one per pipeline stage in
+                   execution order.  A homogeneous tuple collapses to its
+                   single value (canonical form for wisdom keys).
+    output_layout  "natural" (paper: restore the input pencil layout with two
+                   reverse transposes) | "spectral" (beyond-paper: stay in
+                   z-pencil layout, halving collective bytes).
+    transpose_impl "alltoall" (one fused collective) | "ring" (P-1
+                   point-to-point rounds with the fused pack/unpack
+                   kernel) | "pairwise" (FFTW3-style blocking rounds).
+                   ring/pairwise run over single mesh axes only — folded
+                   axes and the cell regroup communicator are rejected by
+                   ``Decomposition.validate``.
+    overlap_mode   how K >= 2 chunks are emitted: "pipelined" (chunk i+1's
+                   FFT is issued before chunk i's collective) | "unrolled"
+                   (chunk after chunk); or a 3-tuple of those, one per
+                   pipeline stage (indexed like ``local_impl``).  Both
+                   orders run identical ops, so results are bitwise equal.
+    """
+
+    overlap_k: int = 2
+    plan_cache: bool = True
+    local_impl: Union[str, tuple] = "matmul"
+    output_layout: str = "natural"
+    transpose_impl: str = "alltoall"
+    overlap_mode: Union[str, tuple] = "pipelined"
+
+    TRANSPOSE_IMPLS = ("alltoall", "ring", "pairwise")
+    OVERLAP_MODES = ("pipelined", "unrolled")
+
+    def __post_init__(self):
+        object.__setattr__(self, "local_impl",
+                           _canon_stage_tuple("local_impl", self.local_impl))
+        om = _canon_stage_tuple("overlap_mode", self.overlap_mode)
+        for m in (om if isinstance(om, tuple) else (om,)):
+            if m not in self.OVERLAP_MODES:
+                raise ValueError(f"overlap_mode must be one of "
+                                 f"{self.OVERLAP_MODES}, got {m!r}")
+        object.__setattr__(self, "overlap_mode", om)
+        if self.transpose_impl not in self.TRANSPOSE_IMPLS:
+            raise ValueError(f"transpose_impl must be one of "
+                             f"{self.TRANSPOSE_IMPLS}, got "
+                             f"{self.transpose_impl!r}")
+
+    # -- canonical string form (plan-cache / wisdom keys) -------------------
+    def to_token(self) -> str:
+        """Canonical string form covering every knob that changes the
+        transform, e.g.
+        ``k2/matmul-stockham-xla/natural/ring/pipelined-unrolled-unrolled``
+        with ``/noplan`` appended when ``plan_cache=False``.  Round trips
+        through :meth:`from_token`."""
+        def join(v):
+            return "-".join(v) if isinstance(v, tuple) else v
+        tok = (f"k{self.overlap_k}/{join(self.local_impl)}/"
+               f"{self.output_layout}/{self.transpose_impl}/"
+               f"{join(self.overlap_mode)}")
+        if not self.plan_cache:
+            tok += "/noplan"
+        return tok
+
+    @classmethod
+    def from_token(cls, token: str) -> "FFTOptions":
+        """Inverse of :meth:`to_token`."""
+        parts = token.split("/")
+        plan_cache = True
+        if parts and parts[-1] == "noplan":
+            plan_cache = False
+            parts = parts[:-1]
+        if len(parts) != 5 or not parts[0].startswith("k"):
+            raise ValueError(f"malformed FFTOptions token {token!r}")
+
+        def split(v):
+            items = v.split("-")
+            return tuple(items) if len(items) > 1 else v
+        return cls(overlap_k=int(parts[0][1:]), local_impl=split(parts[1]),
+                   output_layout=parts[2], transpose_impl=parts[3],
+                   overlap_mode=split(parts[4]), plan_cache=plan_cache)
+
+    def stage_impl(self, stage: int) -> str:
+        """Local 1-D implementation for the given pipeline stage."""
+        if isinstance(self.local_impl, tuple):
+            return self.local_impl[stage]
+        return self.local_impl
+
+    def stage_overlap(self, stage: int) -> str:
+        """Chunk emission mode for the given pipeline stage."""
+        if isinstance(self.overlap_mode, tuple):
+            return self.overlap_mode[stage]
+        return self.overlap_mode
+
+    @classmethod
+    def paper_option(cls, opt: int, **kw) -> "FFTOptions":
+        """CROFT paper options 1-4 (§5.1)."""
+        table = {
+            1: dict(overlap_k=1, plan_cache=False),
+            2: dict(overlap_k=1, plan_cache=True),
+            3: dict(overlap_k=2, plan_cache=False),
+            4: dict(overlap_k=2, plan_cache=True),  # shipped CROFT
+        }
+        return cls(**{**table[opt], **kw})
+
+
+def _canon_stage_tuple(name: str, value: Union[str, tuple]) -> Union[str, tuple]:
+    """Canonicalize a per-stage knob: 3-tuples collapse to their single
+    value when homogeneous (the canonical form for wisdom keys)."""
+    if isinstance(value, (list, tuple)):
+        value = tuple(value)
+        if len(value) != 3:
+            raise ValueError(
+                f"per-stage {name} needs exactly 3 entries, got {value}")
+        if len(set(value)) == 1:
+            value = value[0]
+    return value
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def _norm_scale(shape: Sequence[int], sign: int,
+                norm: Optional[str]) -> Optional[float]:
+    """Global normalization factor (None = no scaling at this call)."""
+    nxyz = shape[-3] * shape[-2] * shape[-1]
+    if norm == "ortho":
+        return 1.0 / math.sqrt(nxyz)
+    if (norm is None or norm == "backward") and sign == +1:
+        return 1.0 / nxyz
+    return None
+
+
+def build_schedule(decomp: Decomposition, opts: FFTOptions,
+                   sign: int = -1) -> schedule_lib.Schedule:
+    """The c2c schedule ``distributed_fft3d`` will run for this plan
+    (public hook for golden tests / inspection / the cost model)."""
+    from_spectral = opts.output_layout == "spectral" and sign == +1
+    return schedule_lib.build_c2c(decomp, sign=sign,
+                                  output_layout=opts.output_layout,
+                                  from_spectral=from_spectral)
+
+
+def distributed_fft3d(x: torch.Tensor, mesh, decomp: Decomposition,
+                      sign: int = -1, opts: Optional[FFTOptions] = None,
+                      norm: Optional[str] = None) -> torch.Tensor:
+    """3-D FFT of a field distributed over ``mesh``; ``x`` is this rank's
+    local block (leading batch dims allowed), laid out as the schedule's
+    input layout says.  Every rank calls it collectively."""
+    if opts is None:
+        opts = FFTOptions()
+    sched = build_schedule(decomp, opts, sign)
+    shape = sched.layout_in.global_shape(x.shape, mesh.shape)
+    decomp.validate(shape, mesh, opts.overlap_k, opts.transpose_impl)
+    # normalization uses *global* sizes, applied to the local output
+    scale = _norm_scale(shape, sign, norm)
+    y = schedule_lib.run_schedule(x.to(mesh.device), sched, opts, mesh)
+    return y if scale is None else y * scale
+
+
+def _local_device(mesh, device) -> torch.device:
+    return mesh.device if mesh is not None else resolve_device(device)
+
+
+def fft3d(x, mesh=None, decomp=None, opts: Optional[FFTOptions] = None,
+          norm: Optional[str] = None, device=None):
+    """Forward 3-D FFT; the single-device path when no mesh is given (on
+    ``device``: the CUDA card unless the caller passes ``device="cpu"``)."""
+    if opts is None:
+        opts = FFTOptions()
+    if mesh is None or mesh.size == 1:
+        return local_fft.fft3d_local(x.to(_local_device(mesh, device)), -1,
+                                     impl=opts.local_impl,
+                                     plan_cache=opts.plan_cache, norm=norm)
+    return distributed_fft3d(x, mesh, decomp, -1, opts, norm)
+
+
+def ifft3d(x, mesh=None, decomp=None, opts: Optional[FFTOptions] = None,
+           norm: Optional[str] = "backward", device=None):
+    """Inverse 3-D FFT (paper eq. 2: 1/(NxNyNz) normalization)."""
+    if opts is None:
+        opts = FFTOptions()
+    if mesh is None or mesh.size == 1:
+        return local_fft.fft3d_local(x.to(_local_device(mesh, device)), +1,
+                                     impl=opts.local_impl,
+                                     plan_cache=opts.plan_cache, norm=norm)
+    return distributed_fft3d(x, mesh, decomp, +1, opts, norm)

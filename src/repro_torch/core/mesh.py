@@ -1,0 +1,208 @@
+"""Named mesh axes over ``torch.distributed`` process groups.
+
+New in the port: it stands in for the reference's ``jax.sharding.Mesh``
++ ``shard_map`` + ``lax.axis_index``/``axis_size``/``all_to_all``/
+``ppermute``.  Every rank runs the same program on its own local block;
+a mesh axis is one process group per line of the mesh
+(``torch.distributed.device_mesh``).  ``mesh=None`` (one rank) is the
+meshless path, as in the reference.
+
+Collectives are issued asynchronously and return a :class:`Pending`;
+the caller waits where it consumes the result, so the executor can issue
+chunk i's collective and go on with chunk i+1's FFT (the paper's
+communication thread).
+
+The process group's backend is the caller's choice, made when it calls
+``torch.distributed.init_process_group``.  NCCL moves CUDA tensors
+itself.  A gloo group (torch 2.11, on an H100) takes CUDA tensors for
+``all_to_all_single`` but not for ``batch_isend_irecv`` (its TCP
+transport then writes from the device pointer and fails), so for a CUDA
+tensor each point-to-point piece is copied to pinned host memory before
+the wire and back after it: that copy is the transport of a gloo group,
+written once in :meth:`Mesh._to_wire`/:meth:`Mesh._from_wire` and
+counted in ``host_staged_bytes``.  The code never switches backend by
+itself.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.device import resolve_device
+
+
+class Pending:
+    """A collective in flight: :meth:`wait` blocks on its work handles,
+    then runs ``finish`` (unstaging, reshaping, unpacking) and returns
+    the result."""
+
+    def __init__(self, works: Sequence = (),
+                 finish: Optional[Callable[[], torch.Tensor]] = None):
+        self._works = list(works)
+        self._finish = finish
+
+    @classmethod
+    def done(cls, value: torch.Tensor) -> "Pending":
+        return cls((), lambda: value)
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        return self._finish()
+
+
+class Mesh:
+    """A named mesh of ranks; build with :func:`make_mesh`."""
+
+    def __init__(self, device_mesh, device: torch.device):
+        self.device_mesh = device_mesh
+        self.device = device
+        self.backend = dist.get_backend()
+        self.host_staged_bytes = 0
+
+    # -- shape and coordinates ----------------------------------------------
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.device_mesh.mesh_dim_names)
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, like ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.device_mesh.shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.device_mesh.shape)
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index along every axis."""
+        return {a: self.device_mesh.get_local_rank(a) for a in self.axis_names}
+
+    def axis_size(self, axis) -> int:
+        if isinstance(axis, tuple):
+            return math.prod(self.shape[a] for a in axis)
+        return self.shape[axis]
+
+    def axis_index(self, axis) -> int:
+        """Index along ``axis``; a folded axis counts major-first."""
+        if isinstance(axis, tuple):
+            idx = 0
+            for a in axis:
+                idx = idx * self.shape[a] + self.device_mesh.get_local_rank(a)
+            return idx
+        return self.device_mesh.get_local_rank(axis)
+
+    def group(self, axis):
+        if isinstance(axis, tuple):
+            raise NotImplementedError(
+                f"collectives over the folded axis {axis} are not ported yet")
+        return self.device_mesh.get_group(axis)
+
+    # -- the gloo transport of point-to-point pieces -------------------------
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _to_wire(self, t: torch.Tensor) -> torch.Tensor:
+        if not self._staged(t):
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        self.host_staged_bytes += t.numel() * t.element_size()
+        return host
+
+    def _wire_buffer(self, like: torch.Tensor) -> torch.Tensor:
+        if not self._staged(like):
+            return like
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def _from_wire(self, wire: torch.Tensor, dst: torch.Tensor) -> None:
+        if wire is not dst:
+            dst.copy_(wire)
+            self.host_staged_bytes += wire.numel() * wire.element_size()
+
+    # -- collectives ---------------------------------------------------------
+    def all_to_all(self, x: torch.Tensor, axis, split_axis: int,
+                   concat_axis: int) -> Pending:
+        """Tiled all-to-all over ``axis`` (``jax.lax.all_to_all(...,
+        tiled=True)``): ``split_axis`` is cut into P chunks, chunk j goes
+        to rank j, and the received chunks are concatenated along
+        ``concat_axis`` in source order."""
+        p = self.axis_size(axis)
+        if p == 1:
+            return Pending.done(x)
+        shape = list(x.shape)
+        if shape[split_axis] % p:
+            raise ValueError(f"split axis extent {shape[split_axis]} not "
+                             f"divisible by {p}")
+        piece = list(shape)
+        piece[split_axis] //= p
+        chunks = (x.reshape(shape[:split_axis] + [p, piece[split_axis]]
+                            + shape[split_axis + 1:])
+                  .movedim(split_axis, 0).contiguous())
+        recv = torch.empty_like(chunks)
+        work = dist.all_to_all_single(recv, chunks, group=self.group(axis),
+                                      async_op=True)
+
+        def finish():
+            out = list(piece)
+            out[concat_axis] *= p
+            return recv.movedim(0, concat_axis).reshape(out)
+        return Pending([work], finish)
+
+    def exchange(self, sends: Sequence, recvs: Sequence, axis) -> Pending:
+        """Point-to-point transfers over ``axis``, all posted at once:
+        ``sends`` are (tensor, destination index), ``recvs`` (contiguous
+        buffer, source index); indices count along the axis.  The buffers
+        hold the received data once the result is waited on."""
+        group = self.group(axis)
+        ops, landings = [], []
+        for t, dst in sends:
+            ops.append(dist.P2POp(dist.isend, self._to_wire(t),
+                                  dist.get_global_rank(group, dst), group))
+        for buf, src in recvs:
+            wire = self._wire_buffer(buf)
+            landings.append((wire, buf))
+            ops.append(dist.P2POp(dist.irecv, wire,
+                                  dist.get_global_rank(group, src), group))
+        works = dist.batch_isend_irecv(ops) if ops else []
+
+        def finish():
+            for wire, buf in landings:
+                self._from_wire(wire, buf)
+        return Pending(works, finish)
+
+    def ppermute(self, x: torch.Tensor, axis, perm) -> torch.Tensor:
+        """``jax.lax.ppermute``: ``perm`` lists (source, destination)
+        index pairs along ``axis``; a rank no pair sends to gets zeros."""
+        me = self.axis_index(axis)
+        out = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+        sends = [(x.contiguous(), d) for s, d in perm if s == me]
+        recvs = [(out, s) for s, d in perm if d == me]
+        self.exchange(sends, recvs, axis).wait()
+        return out
+
+
+def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
+              device=None) -> Mesh:
+    """A mesh over the default process group (initialized by the
+    caller, with the backend it names), ranks laid out row-major like
+    ``jax.make_mesh``.  Local blocks live on ``device`` (the CUDA card
+    unless the caller passes ``device="cpu"``)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed.init_process_group "
+                           "first")
+    if math.prod(axis_sizes) != dist.get_world_size():
+        raise ValueError(f"mesh {tuple(axis_sizes)} does not cover "
+                         f"{dist.get_world_size()} ranks")
+    # the device mesh's own type only selects how it builds its groups:
+    # gloo groups are built as a "cpu" mesh, whatever holds the blocks
+    mesh_type = "cpu" if dist.get_backend() == "gloo" else "cuda"
+    dm = init_device_mesh(mesh_type, tuple(axis_sizes),
+                          mesh_dim_names=tuple(axis_names))
+    return Mesh(dm, resolve_device(device))
