@@ -9,18 +9,37 @@ into ``build/``, then runs:
 1. kernel parity — each kernel against its plain PyTorch version on the
    card (``fft4step`` at N in {16, 64, 256, 1024, 4096} x sign +-1 within
    3e-4 * max|ref|; ``rotate_blocks`` at the ring shapes of phase 3,
-   bitwise), each timed with CUDA events beside its plain version, one
-   library call computing the same function, and its bound;
+   bitwise; the Hermitian unpack/extend at the 1024^3 packed spectrum
+   and n in {16, 64, 256} within 1e-6 * max|ref|; the spectral scale,
+   full-shape at the 1024^3 r2c spectrum and broadcast at (2^20, 1024)
+   with alpha in {1, 0.25}, within 1e-5 * max|ref|), each timed with
+   CUDA events beside its plain version, one library call computing the
+   same function where there is one, and its bound;
 2. the main path on one rank at full size: ``Croft3D`` forward and
    inverse of the croft-1024 grid (1024^3 complex64, an 8 GiB field)
    with ``local_impl="pallas"``, checked against ``torch.fft.fftn``
    (5e-4 * max|ref|) and by its round trip (< 1e-4);
+2b. the spectral-solver path at full size: the croft-1024 grid as a
+   real field (1024^3 float32) through the packed r2c ``Croft3D``,
+   forward (against ``torch.fft.rfftn``, 5e-5 * max|ref|) and inverse
+   (round trip < 1e-4), ``poisson_solve`` (against
+   ``irfftn(rfftn(f) / -k^2)``) and a z-derivative of its solution
+   through ``spectral_scale_op``; then a c2c ``forward_filtered`` at
+   512^3;
 3. the distributed executor: 4 ranks on the one card, joined by a gloo
    process group, pencil 2x2 and slab 4 at 256^3, every transpose impl x
    K in {1, 2} x overlap mode x output layout, each rank's block checked
    against its slice of ``torch.fft.fftn``, the impls bitwise equal;
+3b. the same ranks on a 256^3 real field: packed r2c forward, inverse
+   and ``forward_filtered`` (filter after and folded before the plane
+   unfold), pencil and slab x transpose impl x K, each rank's block
+   against its slice of ``torch.fft.rfftn`` (1e-5 relative), bitwise
+   equal across impls and K;
 4. one JSON line on the kernels, the card's name and power limit, and
    the result line.
+
+Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
+3b) and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -44,9 +63,14 @@ SEED = 0
 FULL = 1024            # croft-1024, src/repro/configs/croft_fft.py
 DIST = 256             # phase-3 grid: 4 ranks share one card's memory and wire
 RANKS = 4
+HALF = 512             # c2c forward_filtered grid of phase 2b
 FFT_TOL = 3e-4         # tests/test_kernels_fft.py:18
 FFT3_TOL = 5e-4        # tests/test_kernels_fft.py:78
 RT_TOL = 1e-4          # tests/test_distributed_fft.py:28
+HERM_TOL = 1e-6        # tests/test_real_fft.py:149
+SCALE_TOL = 1e-5       # tests/test_kernels_fft.py:68
+RFFT_TOL = 5e-5        # tests/test_real_fft.py:160
+DIST_R2C_TOL = 1e-5    # tests/test_real_fft.py:338
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_S = 67e12    # H100 SXM FP32 outside the tensor cores
 TIMEOUT_S = 900
@@ -238,20 +262,320 @@ def phase_full(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 1b: the real-transform and spectral-epilogue kernels
+# ---------------------------------------------------------------------------
+
+def _err_and_scale(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |want|), slab by slab."""
+    return max_abs_diff(got, want), max_abs(want)
+
+
+def phase_real_kernels(dev) -> dict:
+    import torch
+    from repro_torch.kernels import hermitian, spectral_scale as ss
+    from repro_torch.kernels import spectral_scale_op
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    out = {}
+
+    # unpack / extend: small n, then the 1024^3 packed spectrum after
+    # pairing along y, (1024, 512, 1024) -> (1024, 1024, 512)
+    for shape in ((4096, 8, 16), (512, 16, 64), (128, 32, 256),
+                  (FULL, FULL // 2, FULL)):
+        c = torch.randn(*shape, dtype=torch.complex64, device=dev,
+                        generator=gen)
+        s = hermitian.unpack_two_for_one(c, 1)
+        want = hermitian.unpack_two_for_one_plain(c, 1)
+        err, top = _err_and_scale(s, want)
+        print(f"[1] unpack_two_for_one {shape}: max_abs_err={err:.3e} "
+              f"tol={HERM_TOL * top:.3e}", flush=True)
+        check(err <= HERM_TOL * top, f"unpack_two_for_one {shape}")
+        del want
+        back = hermitian.hermitian_extend(s, 1, shape[-1])
+        want = hermitian.hermitian_extend_plain(s, 1, shape[-1])
+        err2, top2 = _err_and_scale(back, want)
+        print(f"[1] hermitian_extend {tuple(s.shape)}: max_abs_err="
+              f"{err2:.3e} tol={HERM_TOL * top2:.3e}", flush=True)
+        check(err2 <= HERM_TOL * top2, f"hermitian_extend {shape}")
+        del back, want
+        if shape[-1] != FULL:
+            continue
+        nbytes = 2 * c.numel() * 8                 # read C, write A and B
+        b_ms, b_by = bound_ms(nbytes, 8.0 * c.numel())
+        rows = [shape[0] * shape[1], shape[2]]
+        out[hermitian.UNPACK] = dict(
+            ms=time_ms(lambda: hermitian.unpack_two_for_one(c, 1)),
+            plain_ms=time_ms(lambda: hermitian.unpack_two_for_one_plain(c, 1)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=rows,
+            max_abs_err=err)
+        out[hermitian.EXTEND] = dict(
+            ms=time_ms(lambda: hermitian.hermitian_extend(s, 1, FULL)),
+            plain_ms=time_ms(lambda: hermitian.hermitian_extend_plain(
+                s, 1, FULL)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=rows,
+            max_abs_err=err2)
+        del c, s
+        torch.cuda.empty_cache()
+    for name in (hermitian.UNPACK, hermitian.EXTEND):
+        print(f"[1] {name} at ({FULL * FULL // 2}, {FULL}): {out[name]}",
+              flush=True)
+
+    # the full-shape spectral scale at the r2c spectrum of the 1024^3 grid
+    shape = (FULL, FULL, FULL // 2 + 1)
+    x = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    h = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    x2, h2 = x.view(-1, shape[-1]), h.view(-1, shape[-1])
+    y = ss.spectral_scale_planes_full(x2, h2)
+    err, top = _err_and_scale(y, ss.spectral_scale_plain(x2, h2))
+    print(f"[1] spectral_scale_full {shape}: max_abs_err={err:.3e} "
+          f"tol={SCALE_TOL * top:.3e}", flush=True)
+    check(err <= SCALE_TOL * top, "spectral_scale_full")
+    del y
+    b_ms, b_by = bound_ms(3 * x.numel() * 8, 8.0 * x.numel())
+    out[ss.FULL] = dict(
+        ms=time_ms(lambda: ss.spectral_scale_planes_full(x2, h2)),
+        plain_ms=time_ms(lambda: ss.spectral_scale_plain(x2, h2)),
+        library_ms=time_ms(lambda: torch.mul(x, h)), bound_ms=b_ms,
+        bound_by=b_by, shape=list(shape), max_abs_err=err)
+    print(f"[1] {ss.FULL} at {shape}: {out[ss.FULL]}", flush=True)
+    del x, h, x2, h2
+    torch.cuda.empty_cache()
+
+    # the broadcast spectral scale through spectral_scale_op, (2^20, 1024)
+    rows = 1 << 20
+    x = torch.randn(rows, FULL, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    h = torch.randn(FULL, dtype=torch.complex64, device=dev, generator=gen)
+    worst = 0.0
+    for alpha in (1.0, 0.25):
+        y = spectral_scale_op(x, h, alpha, device=dev)
+        err, top = _err_and_scale(y, ss.spectral_scale_plain(x, h, alpha))
+        print(f"[1] spectral_scale ({rows}, {FULL}) alpha={alpha}: "
+              f"max_abs_err={err:.3e} tol={SCALE_TOL * top:.3e}", flush=True)
+        check(err <= SCALE_TOL * top, f"spectral_scale alpha={alpha}")
+        worst = max(worst, err)
+        del y
+    b_ms, b_by = bound_ms(2 * x.numel() * 8 + FULL * 8, 8.0 * x.numel())
+    out[ss.BROADCAST] = dict(
+        ms=time_ms(lambda: spectral_scale_op(x, h, 0.25, device=dev)),
+        plain_ms=time_ms(lambda: ss.spectral_scale_plain(x, h, 0.25)),
+        library_ms=time_ms(lambda: torch.mul(x, h)), bound_ms=b_ms,
+        bound_by=b_by, shape=[rows, FULL], max_abs_err=worst)
+    print(f"[1] {ss.BROADCAST} at ({rows}, {FULL}): {out[ss.BROADCAST]}",
+          flush=True)
+    del x, h
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the spectral-solver path on one rank, full size
+# ---------------------------------------------------------------------------
+
+def _wall(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_real_full(dev) -> dict:
+    import torch
+    from repro_torch.core import Croft3D, FFTOptions, poisson_solve
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     spectral_scale_op)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    shape = (FULL,) * 3
+    x = torch.randn(*shape, device=dev, generator=gen)
+    plan = Croft3D(shape, problem="r2c", strategy="packed",
+                   opts=FFTOptions(local_impl="pallas"))
+    kz = torch.fft.rfftfreq(FULL, d=1.0 / FULL, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    y, t_fwd = _wall(lambda: plan.forward(x))
+    ref = torch.fft.rfftn(x)       # oracle only
+    err = max_abs_diff(y, ref) / max_abs(ref)
+    xb, t_inv = _wall(lambda: plan.inverse(y))
+    rt = max_abs_diff(xb, x)
+    del y, xb
+    u, t_poisson = _wall(lambda: poisson_solve(x, plan))
+    # the oracle's multiplier, by the reference's formula (box 2*pi)
+    k = torch.fft.fftfreq(FULL, d=1.0 / FULL, device=dev)
+    k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + kz[None, None, :] ** 2
+    inv_k2 = torch.where(k2 == 0, 0.0, -1.0 / torch.where(k2 == 0, 1.0, k2))
+    del k2
+    ref *= inv_k2
+    del inv_k2
+    u_ref = torch.fft.irfftn(ref, s=shape)
+    del ref
+    p_err = max_abs_diff(u, u_ref) / max_abs(u_ref)
+    del u_ref
+    torch.cuda.empty_cache()
+    # d/dz of the solution: the broadcast k-space multiply by i*kz, with
+    # the Nyquist mode of the odd derivative zeroed, as spectral codes do
+    ikz = torch.complex(torch.zeros_like(kz), kz)
+    ikz[-1] = 0
+    du, t_dz = _wall(lambda: plan.inverse(spectral_scale_op(
+        plan.forward(u), ikz, device=dev)))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    du_ref = torch.fft.irfftn(torch.fft.rfftn(u) * ikz, s=shape)
+    dz_err = max_abs_diff(du, du_ref) / max_abs(du_ref)
+    del du, du_ref, u
+    torch.cuda.empty_cache()
+    print(f"[2b] Croft3D {shape} r2c packed pallas: forward {t_fwd:.2f} ms, "
+          f"inverse {t_inv:.2f} ms, poisson_solve {t_poisson:.2f} ms, "
+          f"d/dz {t_dz:.2f} ms; rel err vs rfftn {err:.3e}, round trip "
+          f"{rt:.3e}, poisson rel err {p_err:.3e}, d/dz rel err "
+          f"{dz_err:.3e}; launches {counts}; peak {peak:.1f} GiB",
+          flush=True)
+    check(err < RFFT_TOL, f"1024^3 r2c forward rel err {err}")
+    check(rt < RT_TOL, f"1024^3 r2c round trip {rt}")
+    check(p_err < RFFT_TOL, f"1024^3 poisson_solve rel err {p_err}")
+    check(dz_err < RFFT_TOL, f"1024^3 d/dz rel err {dz_err}")
+    for name in ("fft4step", "unpack_two_for_one", "hermitian_extend",
+                 "spectral_scale", "spectral_scale_full"):
+        check(counts.get(name, 0) > 0, f"{name} not launched in phase 2b")
+    # the folded epilogue is the distributed packed pipeline's (phase 3b);
+    # a meshless plan refuses it, as the reference does
+    try:
+        plan.forward_filtered(x, ikz, fold=True)
+        check(False, "meshless fold=True did not raise")
+    except ValueError as e:
+        check("fold_filter" in str(e), f"meshless fold=True: {e}")
+
+    # where one forward's device time goes, by kernel (outside the count)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        plan.forward(x)
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in rows) / 1e3
+    print(f"[2b] profiled r2c forward: device busy {busy:.2f} ms", flush=True)
+    for e in rows[:8]:
+        print(f"[2b]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<3d} "
+              f"{e.key[:90]}", flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+    # the c2c epilogue: forward_filtered at 512^3 against fftn * h
+    reset_launch_counts()
+    shape = (HALF,) * 3
+    xc = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    h = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    cplan = Croft3D(shape, opts=FFTOptions(local_impl="pallas"))
+    yf, t_ff = _wall(lambda: cplan.forward_filtered(xc, h))
+    c2c_counts = launch_counts()
+    ref = torch.fft.fftn(xc) * h
+    c_err = max_abs_diff(yf, ref) / max_abs(ref)
+    print(f"[2b] c2c forward_filtered {shape}: {t_ff:.2f} ms, rel err "
+          f"{c_err:.3e}, launches {c2c_counts}", flush=True)
+    check(c_err < FFT3_TOL, f"512^3 c2c forward_filtered rel err {c_err}")
+    check(c2c_counts.get("spectral_scale_full", 0) > 0,
+          "spectral_scale_full not launched by the c2c epilogue")
+    del xc, h, yf, ref
+    torch.cuda.empty_cache()
+    for name, c in c2c_counts.items():
+        counts[name] = counts.get(name, 0) + c
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the distributed executor, 4 ranks on one card
 # ---------------------------------------------------------------------------
 
+MESHES = (((2, 2), ("data", "model"), "pencil"), ((4,), ("p",), "slab"))
+
+
 def worker(rank: int, port: int) -> None:
-    """One rank of phase 3; prints its result as one JSON line."""
+    """One rank of phases 3 and 3b; prints its results as JSON lines."""
     import torch
     import torch.distributed as dist
-    from repro_torch.core import (Croft3D, Decomposition, FFTOptions,
-                                  make_mesh)
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.core import make_mesh
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=RANKS)
+    meshes = [(make_mesh(sizes, names, device=dev), kind, names)
+              for sizes, names, kind in MESHES]
+    res = worker_c2c(rank, dev, meshes)
+    print("RESULT " + json.dumps(res), flush=True)
+    res = worker_r2c(rank, dev, meshes)
+    print("RESULT_R2C " + json.dumps(res), flush=True)
+    dist.destroy_process_group()
+
+
+def worker_r2c(rank: int, dev, meshes) -> dict:
+    """Phase 3b on one rank: the packed r2c pipeline on a 256^3 real field,
+    every transpose impl x K, forward, inverse and both filter
+    placements, against this rank's slice of ``torch.fft.rfftn``."""
+    import torch
+    from repro_torch.core import Croft3D, Decomposition, FFTOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    shape = (DIST,) * 3
+    x = torch.randn(*shape, device=dev, generator=gen)
+    ref = torch.fft.rfftn(x)       # oracle only
+    scale = ref.abs().max().item()
+    k = torch.fft.fftfreq(DIST, device=dev)
+    # kz-independent, real and 2-D-even: valid for the folded epilogue
+    h = torch.exp(-(k[:, None, None] ** 2 + k[None, :, None] ** 2) * 20
+                  ).expand(DIST, DIST, DIST // 2 + 1).to(torch.complex64)
+    ref_h = ref * h
+    res = {"rank": rank, "err": 0.0, "rt": 0.0, "fwd_ms": {},
+           "fwd_launches": {}, "reshard_bytes": 0, "host_staged_bytes": 0}
+    for mesh, kind, names in meshes:
+        mesh.reshard_bytes = mesh.host_staged_bytes = 0
+    reset_launch_counts()
+    for mesh, kind, names in meshes:
+        dec = Decomposition(kind, names)
+        base = {}
+        for impl in ("alltoall", "ring", "pairwise"):
+            for kk in (1, 2):
+                opts = FFTOptions(overlap_k=kk, transpose_impl=impl,
+                                  local_impl="pallas")
+                plan = Croft3D(shape, mesh, dec, opts, problem="r2c",
+                               strategy="packed")
+                xl = x[plan.input_sharding].contiguous()
+                hl = h[plan.output_sharding].contiguous()
+                before = launch_counts()
+                y, t = _wall(lambda: plan.forward(xl))
+                after = launch_counts()
+                tag = f"{kind}/r2c/{impl}/k{kk}"
+                res["fwd_launches"][tag] = {
+                    n: after.get(n, 0) - before.get(n, 0) for n in after}
+                res["fwd_ms"][tag] = t
+                outs = {"forward": y, "inverse": plan.inverse(y),
+                        "filtered": plan.forward_filtered(xl, hl),
+                        "folded": plan.forward_filtered(xl, hl, fold=True)}
+                err = max((outs[n] - want[plan.output_sharding]).abs().max()
+                          .item() for n, want in (("forward", ref),
+                                                  ("filtered", ref_h),
+                                                  ("folded", ref_h)))
+                rt = (outs["inverse"] - xl).abs().max().item()
+                if err >= DIST_R2C_TOL * scale or rt >= RT_TOL:
+                    raise SystemExit(f"rank {rank} {tag}: err "
+                                     f"{err / scale} rt {rt}")
+                for n, v in outs.items():
+                    if n not in base:
+                        base[n] = v
+                    elif not torch.equal(v, base[n]):
+                        raise SystemExit(f"rank {rank} {tag} {n}: differs "
+                                         "bitwise from alltoall K=1")
+                res["err"] = max(res["err"], err / scale)
+                res["rt"] = max(res["rt"], rt)
+        res["reshard_bytes"] += mesh.reshard_bytes
+        res["host_staged_bytes"] += mesh.host_staged_bytes
+    res["launches"] = launch_counts()
+    return res
+
+
+def worker_c2c(rank: int, dev, meshes) -> dict:
+    """Phase 3 on one rank: the c2c matrix at 256^3."""
+    import torch
+    from repro_torch.core import Croft3D, Decomposition, FFTOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     gen = torch.Generator(device=dev).manual_seed(SEED)
     shape = (DIST,) * 3
     x = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
@@ -260,11 +584,8 @@ def worker(rank: int, port: int) -> None:
     res = {"rank": rank, "err": 0.0, "rt": 0.0, "fwd_ms": {},
            "fwd_launches": {}, "host_staged_bytes": 0}
     reset_launch_counts()
-    for sizes, names, dec in (
-            ((2, 2), ("data", "model"), Decomposition("pencil",
-                                                      ("data", "model"))),
-            ((4,), ("p",), Decomposition("slab", ("p",)))):
-        mesh = make_mesh(sizes, names, device=dev)
+    for mesh, kind, names in meshes:
+        dec = Decomposition(kind, names)
         for layout in ("natural", "spectral"):
             base = None
             for impl in ("alltoall", "ring", "pairwise"):
@@ -303,8 +624,7 @@ def worker(rank: int, port: int) -> None:
                         res["fwd_ms"][tag] = t
         res["host_staged_bytes"] += mesh.host_staged_bytes
     res["launches"] = launch_counts()
-    dist.destroy_process_group()
-    print("RESULT " + json.dumps(res), flush=True)
+    return res
 
 
 def _free_port() -> int:
@@ -313,7 +633,27 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_distributed() -> dict:
+def _summarize(results: list, phase: str) -> dict:
+    counts = {}
+    for res in results:
+        for name, c in res["launches"].items():
+            counts[name] = counts.get(name, 0) + c
+    for tag in results[0]["fwd_ms"]:
+        t = max(res["fwd_ms"][tag] for res in results)
+        print(f"[{phase}] {tag}: forward {t:.1f} ms (slowest rank, host "
+              f"clock, gloo), launches per rank "
+              f"{results[0]['fwd_launches'][tag]}", flush=True)
+    summary = dict(
+        err=max(r["err"] for r in results), rt=max(r["rt"] for r in results),
+        launches=counts,
+        host_staged_bytes=sum(r["host_staged_bytes"] for r in results))
+    if "reshard_bytes" in results[0]:
+        summary["reshard_bytes"] = sum(r["reshard_bytes"] for r in results)
+    print(f"[{phase}] {RANKS} ranks, {DIST}^3: {summary}", flush=True)
+    return counts
+
+
+def phase_distributed() -> tuple[dict, dict]:
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", str(r),
@@ -330,34 +670,26 @@ def phase_distributed() -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    results = []
+    results, results_r2c = [], []
     for r, (p, out) in enumerate(zip(procs, outs)):
         lines = [l for l in out.splitlines() if l.startswith("RESULT ")]
-        if p.returncode != 0 or not lines:
+        lines_r2c = [l for l in out.splitlines()
+                     if l.startswith("RESULT_R2C ")]
+        if p.returncode != 0 or not lines or not lines_r2c:
             print(out[-4000:], file=sys.stderr)
-            raise SystemExit(f"FAILED: phase 3 rank {r} exited "
+            raise SystemExit(f"FAILED: phase 3/3b rank {r} exited "
                              f"{p.returncode}")
         results.append(json.loads(lines[-1][len("RESULT "):]))
-    counts = {}
-    for res in results:
-        for name, c in res["launches"].items():
-            counts[name] = counts.get(name, 0) + c
-    fwd = {}
-    for tag in results[0]["fwd_ms"]:
-        fwd[tag] = max(res["fwd_ms"][tag] for res in results)
-    for tag, t in fwd.items():
-        print(f"[3] {tag}: forward {t:.1f} ms (slowest rank, host clock, "
-              f"gloo), launches per rank {results[0]['fwd_launches'][tag]}",
-              flush=True)
-    summary = dict(
-        err=max(r["err"] for r in results), rt=max(r["rt"] for r in results),
-        launches=counts,
-        host_staged_bytes=sum(r["host_staged_bytes"] for r in results))
-    print(f"[3] 4 ranks, {DIST}^3: {summary}", flush=True)
+        results_r2c.append(json.loads(lines_r2c[-1][len("RESULT_R2C "):]))
+    counts = _summarize(results, "3")
     check(counts.get("fft4step", 0) > 0, "fft4step not launched in phase 3")
     check(counts.get("rotate_blocks", 0) > 0,
           "rotate_blocks not launched in phase 3")
-    return counts
+    counts_r2c = _summarize(results_r2c, "3b")
+    for name in ("fft4step", "rotate_blocks", "unpack_two_for_one",
+                 "hermitian_extend", "spectral_scale_full"):
+        check(counts_r2c.get(name, 0) > 0, f"{name} not launched in phase 3b")
+    return counts, counts_r2c
 
 
 # ---------------------------------------------------------------------------
@@ -377,19 +709,32 @@ def main() -> int:
     print(f"[0] build {time.time() - t0:.1f} s", flush=True)
 
     timings = phase_kernels(dev)
-    full = phase_full(dev)
-    dist_counts = phase_distributed()
+    timings.update(phase_real_kernels(dev))
+    paths = [phase_full(dev), phase_real_full(dev), *phase_distributed()]
 
-    replaces = {"fft4step": "src/repro/kernels/fft_matmul.py:107",
-                "rotate_blocks": "src/repro/kernels/transpose_pack.py:84"}
+    # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
+    ported = {
+        "fft4step": ("fft4step", "src/repro/kernels/fft_matmul.py:107"),
+        "rotate_blocks": ("rotate_blocks",
+                          "src/repro/kernels/transpose_pack.py:84"),
+        "unpack_two_for_one": ("hermitian",
+                               "src/repro/kernels/hermitian.py:83"),
+        "hermitian_extend": ("hermitian",
+                             "src/repro/kernels/hermitian.py:122"),
+        "spectral_scale": ("spectral_scale",
+                           "src/repro/kernels/spectral_scale.py:41"),
+        "spectral_scale_full": ("spectral_scale",
+                                "src/repro/kernels/spectral_scale.py:74"),
+    }
     kernels = []
-    for name in ("fft4step", "rotate_blocks"):
+    for name, (src, replaces) in ported.items():
         t = timings[name]
+        launches = sum(p.get(name, 0) for p in paths)
+        check(launches > 0, f"{name} not launched on the main path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name],
-            "launches": full.get(name, 0) + dist_counts.get(name, 0),
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces, "launches": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

@@ -1,10 +1,18 @@
 """Public CROFT API: plan-style handle over the distributed 3-D FFT.
 
-Port of ``repro/core/api.py`` (the complex transform).  ``Croft3D`` is the
-analogue of ``croft_parallel3d`` plus FFTW's plan object: it binds (grid
-shape, mesh, decomposition, options) once, validates, and exposes the
-forward/inverse transforms.  With a mesh, every rank holds a ``Croft3D``
-and calls it with its own local block.
+Port of ``repro/core/api.py``.  ``Croft3D`` is the analogue of
+``croft_parallel3d`` plus FFTW's plan object: it binds (grid shape, mesh,
+decomposition, options) once, validates, and exposes the forward/inverse
+transforms.  With a mesh, every rank holds a ``Croft3D`` and calls it
+with its own local block.
+
+Problem classes: ``problem="c2c"`` (default) plans the complex
+transform; ``problem="r2c"`` plans a real-input transform whose forward
+matches ``torch.fft.rfftn`` and whose inverse is the exact c2r — the
+packed two-for-one pipeline, or (meshless only, so far) the embedding
+(``repro_torch.real``, ``strategy=``).  ``forward_filtered`` fuses a
+k-space multiply into the forward; :func:`poisson_solve` is the spectral
+solver built on it.
 """
 
 from __future__ import annotations
@@ -30,6 +38,11 @@ class Croft3D:
     >>> y = plan.forward(x)        # x: this rank's block, plan.input_sharding
     >>> x2 = plan.inverse(y)       # == x up to dtype tolerance
 
+    Real transforms: ``Croft3D(shape, mesh, dec, problem="r2c")``.
+    ``forward`` then takes a real block (``input_dtype``; the packed
+    strategy wants z-pencils, see ``input_sharding``) and returns the
+    (Nx, Ny, Nz//2 + 1) half spectrum; ``inverse`` returns the real field.
+
     Meshless plans run on ``device`` (the CUDA card unless the caller
     passes ``device="cpu"``); with a mesh, on the mesh's device.
     """
@@ -39,14 +52,14 @@ class Croft3D:
     decomp: Optional[Decomposition] = None
     opts: FFTOptions = dataclasses.field(default_factory=FFTOptions)
     dtype: torch.dtype = torch.complex64
-    #: problem class; only "c2c" is ported so far
+    #: problem class: "c2c" | "r2c" (``dtype`` is always the spectrum dtype)
     problem: str = "c2c"
     device: Optional[object] = None
+    #: r2c only: "packed" | "embed" | None (= auto); resolved in __post_init__
+    strategy: Optional[str] = None
 
     def __post_init__(self):
-        if self.problem != "c2c":
-            if self.problem == "r2c":
-                raise NotImplementedError("problem='r2c' is not ported yet")
+        if self.problem not in ("c2c", "r2c"):
             raise ValueError(f"problem must be 'c2c' or 'r2c', got "
                              f"{self.problem!r}")
         self.shape = tuple(self.shape)
@@ -59,6 +72,14 @@ class Croft3D:
             self.device = self.mesh.device
         else:
             self.device = resolve_device(self.device)
+        if self.problem == "r2c":
+            from repro_torch import real as real_lib
+            from repro_torch.core import rfft
+            self.strategy = real_lib.resolve_strategy(
+                self.strategy, self.shape, self.mesh, self.decomp, self.opts)
+            if self.strategy == "embed" and real_lib.is_multidevice(
+                    self.mesh):
+                raise NotImplementedError(rfft.EMBED_NOT_PORTED)
 
     @classmethod
     def from_tokens(cls, shape: Sequence[int], decomp_token: str,
@@ -69,23 +90,45 @@ class Croft3D:
         return cls(tuple(shape), mesh, Decomposition.from_token(decomp_token),
                    FFTOptions.from_token(opts_token), **kw)
 
+    # -- dtypes / shapes -----------------------------------------------------
+    @property
+    def input_dtype(self) -> torch.dtype:
+        """What ``forward`` consumes: real for r2c, ``dtype`` for c2c."""
+        if self.problem == "r2c":
+            from repro_torch.real.packing import real_dtype_for
+            return real_dtype_for(self.dtype)
+        return self.dtype
+
+    @property
+    def spectrum_shape(self) -> tuple[int, int, int]:
+        """Global shape of ``forward``'s output."""
+        if self.problem == "r2c":
+            return self.shape[:-1] + (self.shape[-1] // 2 + 1,)
+        return self.shape
+
     # -- layouts -------------------------------------------------------------
-    def _slices(self, layout: str, coords=None) -> Optional[tuple]:
+    def _slices(self, layout: str, shape=None) -> Optional[tuple]:
         if self.mesh is None:
             return None
-        return self.decomp.slices(self.shape, self.mesh,
-                                  self.mesh.coords if coords is None
-                                  else coords, layout)
+        return self.decomp.slices(shape or self.shape, self.mesh,
+                                  self.mesh.coords, layout)
 
     @property
     def input_sharding(self) -> Optional[tuple]:
         """The global index ranges of this rank's input block (None when
-        meshless)."""
+        meshless).  Packed real input is z-pencils: the r2c stage runs
+        first, so the pipeline starts where the c2c pipeline ends."""
+        if self.problem == "r2c" and self.strategy == "packed":
+            return self._slices("spectral")
         return self._slices("natural")
 
     @property
     def output_sharding(self) -> Optional[tuple]:
-        """The global index ranges of this rank's output block."""
+        """The global index ranges of this rank's output block.  The r2c
+        half spectrum keeps Nh = Nz//2 + 1 local (it never divides the z
+        shards): its block is the spectral layout's."""
+        if self.problem == "r2c":
+            return self._slices("spectral", self.spectrum_shape)
         return self._slices(self.opts.output_layout)
 
     def local_shape(self) -> tuple[int, ...]:
@@ -93,30 +136,69 @@ class Croft3D:
             return self.shape
         return self.decomp.local_shape(self.shape, self.mesh)
 
-    def _check(self, x: torch.Tensor, layout: str) -> None:
+    def _check(self, x: torch.Tensor, sharding, shape) -> None:
         if self.mesh is None:
-            want = self.shape
+            want = tuple(shape)
         else:
-            want = tuple(s.stop - s.start for s in self._slices(layout))
+            want = tuple(s.stop - s.start for s in sharding)
         if tuple(x.shape[-3:]) != want:
             raise ValueError(f"expected a block of shape {want} (leading "
                              f"batch dims allowed), got {tuple(x.shape)}")
 
     # -- transforms ----------------------------------------------------------
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check(x, "natural")
-        return distributed.fft3d(x, self.mesh, self.decomp, self.opts,
-                                 device=self.device)
+        return self._forward(x)
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
-        self._check(y, self.opts.output_layout)
+        self._check(y, self.output_sharding, self.spectrum_shape)
+        if self.problem == "r2c":
+            from repro_torch.core import rfft
+            return rfft.irfft3d(y, self.shape[-1], self.mesh, self.decomp,
+                                self.opts, strategy=self.strategy,
+                                device=self.device)
         return distributed.ifft3d(y, self.mesh, self.decomp, self.opts,
                                   device=self.device)
 
+    def _forward(self, x: torch.Tensor, h=None,
+                 fold: bool = False) -> torch.Tensor:
+        self._check(x, self.input_sharding, self.shape)
+        if self.problem == "r2c":
+            from repro_torch.core import rfft
+            return rfft.rfft3d(x, self.mesh, self.decomp, self.opts,
+                               strategy=self.strategy, kspace_filter=h,
+                               fold_filter=fold, device=self.device)
+        if fold:
+            raise ValueError("fold=True is the packed r2c folded epilogue; "
+                             "c2c filters are always fused in-schedule")
+        return distributed.fft3d(x, self.mesh, self.decomp, self.opts,
+                                 device=self.device, kspace_filter=h)
+
+    def forward_filtered(self, x: torch.Tensor, h: torch.Tensor,
+                         alpha: float = 1.0,
+                         fold: bool = False) -> torch.Tensor:
+        """``forward`` with the k-space multiply ``alpha * h`` fused in.
+
+        The multiply rides as a schedule epilogue (c2c: attached to the
+        last stage via ``Schedule.with_epilogue``; packed r2c: right
+        after the DC/Nyquist plane unfold) through the
+        ``kernels/spectral_scale.py`` kernel.  ``h`` is shaped like
+        ``spectrum_shape`` (with a mesh: this rank's ``output_sharding``
+        block of it).
+
+        ``fold=True`` (distributed packed r2c only) moves the multiply
+        *before* the DC/Nyquist unfold, onto the packed half spectrum
+        inside the schedule — valid for filters with ``h(kz=0) ==
+        h(kz=Nyquist)``, that plane real and 2-D-even (e.g. a
+        kz-independent low-pass over (kx, ky)).
+        """
+        hh = h if alpha == 1.0 else h * alpha
+        return self._forward(x, hh, fold)
+
     def forward_batched(self, x: torch.Tensor) -> torch.Tensor:
         """``forward`` over a (B, Nx, Ny, Nz) stack: the executor carries
-        the batch axis through every stage, so the collective count is
-        B=1's and each field's result equals its own ``forward``."""
+        the batch axis through every stage (natively for packed r2c, its
+        DC/Nyquist unfold included), so the collective count is B=1's and
+        each field's result equals its own ``forward``."""
         return self.forward(x)
 
     def inverse_batched(self, y: torch.Tensor) -> torch.Tensor:
@@ -128,13 +210,26 @@ class Croft3D:
         eagerly and holds none, so there is nothing to drop."""
 
     # -- models --------------------------------------------------------------
+    def _forward_schedule(self):
+        """The stage schedule ``forward`` executes (None when meshless)."""
+        if self.mesh is None or self.decomp is None:
+            return None
+        if self.problem == "r2c" and self.strategy == "packed":
+            from repro_torch.real import pipeline
+            return pipeline.build_packed_forward(self.decomp)
+        return distributed.build_schedule(self.decomp, self.opts, -1)
+
     def flops_model(self) -> float:
         """Analytic 5 N log2 N FLOP count for the full 3-D transform,
-        summed over the schedule's local-FFT events."""
-        if self.mesh is None or self.decomp is None:
+        summed over the schedule's local-FFT events (so the packed real
+        pipeline's halved stages are charged at their true sizes)."""
+        sched = self._forward_schedule()
+        if sched is None:
             n_total = math.prod(self.shape)
-            return 5.0 * n_total * sum(math.log2(s) for s in self.shape)
-        sched = distributed.build_schedule(self.decomp, self.opts, -1)
+            flops = 5.0 * n_total * sum(math.log2(s) for s in self.shape)
+            if self.problem == "r2c" and self.strategy == "packed":
+                flops *= 0.5
+            return flops
         sizes = dict(self.mesh.shape)
         per_device = sum(5.0 * elems * math.log2(n) for _, elems, n
                          in sched.fft_events(self.shape, sizes))
@@ -145,3 +240,34 @@ def auto_pencil(shape: Sequence[int], mesh,
                 axes: Sequence[str] = ("data", "model")) -> Decomposition:
     """Pencil decomposition over the given mesh axes (fig. 5 virtual grid)."""
     return Decomposition("pencil", tuple(axes))
+
+
+def poisson_solve(rhs: torch.Tensor, plan: Croft3D,
+                  box: float = 2 * math.pi) -> torch.Tensor:
+    """Spectral Poisson solve  ∇²u = f  on a periodic box (example app).
+
+    Works with both problem classes: a c2c plan sees the full spectrum, an
+    r2c plan the Hermitian half (kz from ``rfftfreq``).  The 1/(-k²)
+    multiplier is fused into the forward transform as a schedule
+    epilogue (``plan.forward_filtered``).  With a mesh, ``rhs`` is this
+    rank's input block and the multiplier is cut to its
+    ``output_sharding`` block.
+    """
+    nx, ny, nz = plan.shape
+    dev = plan.device
+    kx = torch.fft.fftfreq(nx, d=box / (2 * math.pi * nx), device=dev)
+    ky = torch.fft.fftfreq(ny, d=box / (2 * math.pi * ny), device=dev)
+    if plan.problem == "r2c":
+        kz = torch.fft.rfftfreq(nz, d=box / (2 * math.pi * nz), device=dev)
+    else:
+        kz = torch.fft.fftfreq(nz, d=box / (2 * math.pi * nz), device=dev)
+    if plan.mesh is not None:
+        sx, sy, sz = plan.output_sharding
+        kx, ky, kz = kx[sx], ky[sy], kz[sz]
+    k2 = (kx[:, None, None] ** 2 + ky[None, :, None] ** 2
+          + kz[None, None, :] ** 2)
+    inv_k2 = torch.where(k2 == 0, 0.0,
+                         -1.0 / torch.where(k2 == 0, 1.0, k2))
+    u_hat = plan.forward_filtered(rhs.to(plan.input_dtype),
+                                  inv_k2.to(plan.dtype))
+    return plan.inverse(u_hat)

@@ -50,11 +50,11 @@ def spec_slices(spec: Sequence, shape: Sequence[int],
                 mesh_sizes: Mapping[str, int],
                 coords: Mapping[str, int]) -> tuple:
     """The global index range of each grid dim held by the rank at mesh
-    ``coords`` under ``spec``.  A dim sharded by several axes is split
-    major-first, as a JAX ``PartitionSpec`` with a tuple entry splits
-    it."""
+    ``coords`` under ``spec`` (one entry per trailing dim of ``shape``).
+    A dim sharded by several axes is split major-first, as a JAX
+    ``PartitionSpec`` with a tuple entry splits it."""
     out = []
-    for entry, n in zip(spec, shape[-3:]):
+    for entry, n in zip(spec, shape[len(shape) - len(spec):]):
         names = _names(entry)
         parts = math.prod(mesh_sizes[a] for a in names)
         if n % parts:

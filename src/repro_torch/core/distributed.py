@@ -190,10 +190,16 @@ def build_schedule(decomp: Decomposition, opts: FFTOptions,
 
 def distributed_fft3d(x: torch.Tensor, mesh, decomp: Decomposition,
                       sign: int = -1, opts: Optional[FFTOptions] = None,
-                      norm: Optional[str] = None) -> torch.Tensor:
+                      norm: Optional[str] = None,
+                      kspace_filter: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """3-D FFT of a field distributed over ``mesh``; ``x`` is this rank's
     local block (leading batch dims allowed), laid out as the schedule's
-    input layout says.  Every rank calls it collectively."""
+    input layout says.  Every rank calls it collectively.
+
+    ``kspace_filter`` (this rank's block of a filter laid out like the
+    output spectrum) fuses a pointwise k-space multiply into the
+    transform as a terminal schedule epilogue (``SpectralScale``)."""
     if opts is None:
         opts = FFTOptions()
     sched = build_schedule(decomp, opts, sign)
@@ -201,7 +207,12 @@ def distributed_fft3d(x: torch.Tensor, mesh, decomp: Decomposition,
     decomp.validate(shape, mesh, opts.overlap_k, opts.transpose_impl)
     # normalization uses *global* sizes, applied to the local output
     scale = _norm_scale(shape, sign, norm)
-    y = schedule_lib.run_schedule(x.to(mesh.device), sched, opts, mesh)
+    operands = None
+    if kspace_filter is not None:
+        sched = sched.with_epilogue(schedule_lib.SpectralScale())
+        operands = {"filter": kspace_filter.to(mesh.device, x.dtype)}
+    y = schedule_lib.run_schedule(x.to(mesh.device), sched, opts, mesh,
+                                  operands)
     return y if scale is None else y * scale
 
 
@@ -210,16 +221,22 @@ def _local_device(mesh, device) -> torch.device:
 
 
 def fft3d(x, mesh=None, decomp=None, opts: Optional[FFTOptions] = None,
-          norm: Optional[str] = None, device=None):
+          norm: Optional[str] = None, device=None,
+          kspace_filter: Optional[torch.Tensor] = None):
     """Forward 3-D FFT; the single-device path when no mesh is given (on
-    ``device``: the CUDA card unless the caller passes ``device="cpu"``)."""
+    ``device``: the CUDA card unless the caller passes ``device="cpu"``),
+    with the k-space multiply after it when ``kspace_filter`` is given."""
     if opts is None:
         opts = FFTOptions()
     if mesh is None or mesh.size == 1:
-        return local_fft.fft3d_local(x.to(_local_device(mesh, device)), -1,
-                                     impl=opts.local_impl,
-                                     plan_cache=opts.plan_cache, norm=norm)
-    return distributed_fft3d(x, mesh, decomp, -1, opts, norm)
+        y = local_fft.fft3d_local(x.to(_local_device(mesh, device)), -1,
+                                  impl=opts.local_impl,
+                                  plan_cache=opts.plan_cache, norm=norm)
+        if kspace_filter is not None:
+            from repro_torch.kernels import spectral_scale as ss
+            y = ss.spectral_scale(y, kspace_filter.to(y.device, y.dtype))
+        return y
+    return distributed_fft3d(x, mesh, decomp, -1, opts, norm, kspace_filter)
 
 
 def ifft3d(x, mesh=None, decomp=None, opts: Optional[FFTOptions] = None,

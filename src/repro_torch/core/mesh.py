@@ -10,7 +10,10 @@ meshless path, as in the reference.
 Collectives are issued asynchronously and return a :class:`Pending`;
 the caller waits where it consumes the result, so the executor can issue
 chunk i's collective and go on with chunk i+1's FFT (the paper's
-communication thread).
+communication thread).  :meth:`Mesh.reshard` (any block layout to any
+other, the port of the reference's sharding constraint) and
+:meth:`Mesh.gather` (a whole array on every rank) run outside the stage
+list and return the result.
 
 The process group's backend is the caller's choice, made when it calls
 ``torch.distributed.init_process_group``.  NCCL moves CUDA tensors
@@ -26,6 +29,7 @@ itself.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Optional, Sequence
 
@@ -33,6 +37,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
+from repro_torch.core.decomposition import spec_slices
 from repro_torch.device import resolve_device
 
 
@@ -64,6 +69,7 @@ class Mesh:
         self.device = device
         self.backend = dist.get_backend()
         self.host_staged_bytes = 0
+        self.reshard_bytes = 0
 
     # -- shape and coordinates ----------------------------------------------
     @property
@@ -176,6 +182,85 @@ class Mesh:
             for wire, buf in landings:
                 self._from_wire(wire, buf)
         return Pending(works, finish)
+
+    def rank_coords(self) -> list:
+        """Mesh coordinates of every rank, indexed by global rank."""
+        grid = self.device_mesh.mesh
+        out = [None] * self.size
+        for idx in itertools.product(*(range(n) for n in grid.shape)):
+            out[int(grid[idx])] = dict(zip(self.axis_names, idx))
+        return out
+
+    def reshard(self, blk: torch.Tensor, shape: Sequence[int], src_spec,
+                dst_spec) -> torch.Tensor:
+        """This rank's block of the global array ``shape`` (the trailing
+        dims of ``blk``; leading dims ride along) laid out by
+        ``src_spec``, re-laid out by ``dst_spec``, as one all-to-all over
+        every rank of the mesh.
+
+        Each rank sends every rank the intersection of its source block
+        with that rank's destination block, and places what it receives
+        by the sender's intersection (``decomposition.spec_slices``).
+        Two per-axis transposes cannot do this when a dim's shards nest
+        (pencil y: Py-major, then Pz).  ``reshard_bytes`` counts what
+        left this rank."""
+        nd = len(src_spec)
+        lead = tuple(blk.shape[:blk.ndim - nd])
+        sizes = self.shape
+        coords = self.rank_coords()
+        src = [spec_slices(src_spec, shape, sizes, c) for c in coords]
+        dst = [spec_slices(dst_spec, shape, sizes, c) for c in coords]
+        me = dist.get_rank()
+        want = tuple(s.stop - s.start for s in src[me])
+        if tuple(blk.shape[blk.ndim - nd:]) != want:
+            raise ValueError(f"block {tuple(blk.shape)} is not this rank's "
+                             f"{want} block of {tuple(shape)}")
+
+        def meet(a, b):
+            out = tuple(slice(max(x.start, y.start), min(x.stop, y.stop))
+                        for x, y in zip(a, b))
+            return None if any(s.start >= s.stop for s in out) else out
+
+        def local(box, origin):
+            return (Ellipsis,) + tuple(
+                slice(s.start - o.start, s.stop - o.start)
+                for s, o in zip(box, origin))
+
+        def numel(box):
+            return math.prod(lead) * math.prod(s.stop - s.start for s in box)
+
+        sends, send_sizes = [], []
+        for d in range(self.size):
+            box = meet(src[me], dst[d])
+            send_sizes.append(0 if box is None else numel(box))
+            if box is not None:
+                sends.append(blk[local(box, src[me])].reshape(-1))
+                if d != me:
+                    self.reshard_bytes += send_sizes[-1] * blk.element_size()
+        boxes = [meet(src[s], dst[me]) for s in range(self.size)]
+        recv_sizes = [0 if b is None else numel(b) for b in boxes]
+        send = (torch.cat(sends) if sends else
+                torch.empty(0, dtype=blk.dtype, device=blk.device))
+        recv = torch.empty(sum(recv_sizes), dtype=blk.dtype, device=blk.device)
+        dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
+        out = torch.empty(lead + tuple(s.stop - s.start for s in dst[me]),
+                          dtype=blk.dtype, device=blk.device)
+        at = 0
+        for box, n in zip(boxes, recv_sizes):
+            if box is None:
+                continue
+            piece = recv[at:at + n].reshape(
+                lead + tuple(s.stop - s.start for s in box))
+            out[local(box, dst[me])] = piece
+            at += n
+        return out
+
+    def gather(self, blk: torch.Tensor, shape: Sequence[int],
+               spec) -> torch.Tensor:
+        """The whole array ``shape`` on every rank, from this rank's block
+        laid out by ``spec`` (a :meth:`reshard` to the replicated
+        layout)."""
+        return self.reshard(blk, shape, spec, (None,) * len(spec))
 
     def ppermute(self, x: torch.Tensor, axis, perm) -> torch.Tensor:
         """``jax.lax.ppermute``: ``perm`` lists (source, destination)

@@ -1,25 +1,32 @@
 """Stage-schedule IR: one declarative representation of the FFT pipeline.
 
-Port of ``repro/core/schedule.py`` (the complex-transform subset).  The
-paper's pipeline (§4.1 steps 1-9, overlapped via K chunks) is *data*:
+Port of ``repro/core/schedule.py``.  The paper's pipeline (§4.1 steps
+1-9, overlapped via K chunks) is *data*:
 
-  ``Stage``      one pipeline step: an optional local 1-D FFT and an
-                 optional global transpose over one communicator,
-                 K-chunked along an uninvolved axis for overlap.
+  ``Stage``      one pipeline step: optional prologue ops, an optional
+                 local 1-D FFT, optional epilogue ops and an optional
+                 global transpose over one communicator, K-chunked along
+                 an uninvolved axis for overlap.
   ``Layout``     symbolic local-block layout: which mesh axes shard each
-                 grid dimension.  Schedules propagate layouts through
-                 every stage at build time, so malformed pipelines fail
-                 before they run.
-  ``Schedule``   an ordered stage list + metadata.
+                 grid dimension, static divisors (the packed half
+                 spectrum) and the real/complex dtype class.  Schedules
+                 propagate layouts through every stage at build time, so
+                 malformed pipelines fail before they run.
+  ``Schedule``   an ordered stage list + terminal epilogue ops (the fused
+                 k-space multiply, ``with_epilogue``) + metadata for
+                 collectives outside the stage list (the packed
+                 pipeline's z-localizing reshard).
   ``run_schedule``  the single executor: owns K-chunked overlap, the
                  chunk-indivisible fallback (``effective_k``), per-stage
                  ``local_impl`` selection, and batch-axis offsetting.
 
 :func:`build_c2c` covers every complex pipeline (pencil / slab / cell,
 natural / spectral, forward / from-spectral); ``describe()`` renders the
-same text as the reference, so both are held to the same goldens.  The
-executor runs pencil and slab; the cell regroup and folded axes are IR
-only in this package so far.
+same text as the reference, so both are held to the same goldens;
+``repro_torch.real.pipeline`` builds the packed two-for-one real
+pipelines on the same IR with the stage ops below.  The executor runs
+pencil and slab; the cell regroup and folded axes are IR only in this
+package so far.
 """
 
 from __future__ import annotations
@@ -141,6 +148,15 @@ class Layout:
         axes[split_axis] = dataclasses.replace(spl, shards=spl.shards + names)
         return dataclasses.replace(self, axes=tuple(axes))
 
+    def with_den(self, axis: int, mul: int = 1, div: int = 1) -> "Layout":
+        axes = list(self.axes)
+        a = axes[axis]
+        den = a.den * mul
+        if den % div:
+            raise ScheduleError(f"cannot divide den={den} of {a} by {div}")
+        axes[axis] = dataclasses.replace(a, den=den // div)
+        return dataclasses.replace(self, axes=tuple(axes))
+
     def check_fft_axis(self, axis: int) -> None:
         a = self.axes[axis]
         if a.shards:
@@ -162,6 +178,142 @@ def layout_for(decomp, which: str = "natural", real: bool = False) -> Layout:
 
 
 # ---------------------------------------------------------------------------
+# stage ops (prologue/epilogue): declarative, layout-aware
+# ---------------------------------------------------------------------------
+
+class StageOp:
+    """Protocol for prologue/epilogue ops.
+
+    ``apply`` runs inside the executor (per K-chunk for chunked stages);
+    ``transform`` propagates the symbolic layout; ``describe`` renders the
+    op for golden snapshots.  Imports happen inside ``apply`` so the IR
+    stays importable from anywhere (core <-> real <-> kernels).
+    """
+
+    def apply(self, blk, opts, ctx, off: int):
+        raise NotImplementedError
+
+    def transform(self, layout: Layout) -> Layout:
+        return layout
+
+    def describe(self) -> str:
+        return type(self).__name__
+
+
+@dataclasses.dataclass(frozen=True)
+class PackTwo(StageOp):
+    """Pair two real pencils along ``pair_axis`` into one complex block."""
+
+    pair_axis: int
+
+    def apply(self, blk, opts, ctx, off):
+        from repro_torch.real import packing
+        return packing.pack_two(blk, self.pair_axis + off)
+
+    def transform(self, layout):
+        if not layout.real:
+            raise ScheduleError("pack2 needs a real block")
+        return dataclasses.replace(
+            layout.with_den(self.pair_axis, mul=2), real=False)
+
+    def describe(self):
+        return f"pack2[{_DIMS[self.pair_axis]}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class UnpackTwo(StageOp):
+    """Split the packed z spectrum into two folded half spectra (the
+    shard-aligned Nz/2-bin layout, Nyquist folded into DC); the
+    ``"pallas"`` impl runs the Hopper unpack kernel."""
+
+    pair_axis: int
+    z_axis: int = 2
+    impl_stage: int = 0
+
+    def apply(self, blk, opts, ctx, off):
+        from repro_torch.real import packing
+        use_pallas = opts.stage_impl(self.impl_stage) == "pallas"
+        return packing.unpack_two(blk, self.pair_axis + off, fold=True,
+                                  use_pallas=use_pallas)
+
+    def transform(self, layout):
+        return layout.with_den(self.pair_axis, div=2).with_den(
+            self.z_axis, mul=2)
+
+    def describe(self):
+        return f"unpack2[{_DIMS[self.pair_axis]}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class RepackHalves(StageOp):
+    """Inverse of :class:`UnpackTwo`: rebuild the full packed z spectrum
+    (the ``"pallas"`` impl runs the Hopper extend kernel)."""
+
+    pair_axis: int
+    nz: int
+    z_axis: int = 2
+    impl_stage: int = 2
+
+    def apply(self, blk, opts, ctx, off):
+        from repro_torch.real import packing
+        use_pallas = opts.stage_impl(self.impl_stage) == "pallas"
+        return packing.repack_halves(blk, self.pair_axis + off, self.nz,
+                                     folded=True, use_pallas=use_pallas)
+
+    def transform(self, layout):
+        return layout.with_den(self.pair_axis, mul=2).with_den(
+            self.z_axis, div=2)
+
+    def describe(self):
+        return f"repack2[{_DIMS[self.pair_axis]}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPairs(StageOp):
+    """Complex block -> real block, doubled along ``pair_axis``."""
+
+    pair_axis: int
+
+    def apply(self, blk, opts, ctx, off):
+        from repro_torch.real import packing
+        return packing.split_pairs(blk, self.pair_axis + off)
+
+    def transform(self, layout):
+        if layout.real:
+            raise ScheduleError("split2 needs a complex block")
+        return dataclasses.replace(
+            layout.with_den(self.pair_axis, div=2), real=True)
+
+    def describe(self):
+        return f"split2[{_DIMS[self.pair_axis]}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralScale(StageOp):
+    """Fused k-space multiply: ``blk * alpha * operands[key]``.
+
+    Attached via :meth:`Schedule.with_epilogue`; the filter block arrives
+    through the executor's ``operands`` mapping, laid out like the block
+    at the attachment point (``Schedule.layout_out`` for terminal
+    epilogues).
+    """
+
+    key: str = "filter"
+    alpha: float = 1.0
+
+    def apply(self, blk, opts, ctx, off):
+        if self.key not in ctx:
+            raise ScheduleError(
+                f"schedule epilogue needs operand {self.key!r}; pass it via "
+                "run_schedule(..., operands={...})")
+        from repro_torch.kernels import spectral_scale as ss
+        return ss.spectral_scale(blk, ctx[self.key], self.alpha)
+
+    def describe(self):
+        return f"kscale[{self.key}]"
+
+
+# ---------------------------------------------------------------------------
 # stages and schedules
 # ---------------------------------------------------------------------------
 
@@ -177,10 +329,10 @@ class Stage:
     dependence on chunk i+1's FFT, so the two overlap — the paper's
     second OpenMP thread.
 
+    ``prologue``/``epilogue`` hold :class:`StageOp` s — the packed real
+    transforms' pair/split ops run here, per K-chunk.
     ``transpose_impl`` / ``overlap_k`` are *per-stage* overrides of the
-    same-named :class:`FFTOptions` knobs (None = inherit).  The prologue
-    and epilogue op types (packed real transforms, the k-space multiply)
-    are not ported yet; the fields keep the IR's shape.
+    same-named :class:`FFTOptions` knobs (None = inherit).
     """
 
     name: str
@@ -221,7 +373,9 @@ class StagePoints:
 
 @dataclasses.dataclass(frozen=True)
 class ExtraComm:
-    """A collective outside the stage list (metadata for the cost model)."""
+    """A collective outside the stage list: e.g. the packed pipeline's
+    z-localizing reshard (``mesh.reshard``, one all-to-all of the half
+    volume, never K-chunked)."""
 
     name: str
     layout: Layout
@@ -270,6 +424,12 @@ class Schedule:
     @property
     def layout_out(self) -> Layout:
         return self._layout_out
+
+    def with_epilogue(self, op: StageOp) -> "Schedule":
+        """Attach a terminal epilogue op (run once on the final block,
+        after the last collective — never per-chunk)."""
+        return dataclasses.replace(self, epilogue=self.epilogue + (op,),
+                                   points=None)
 
     # -- introspection (cost model, golden tests, effective_k) --------------
     def comm_stages(self) -> list:
@@ -523,7 +683,7 @@ def run_schedule(blk: torch.Tensor, sched: Schedule, opts, mesh,
 
     Leading batch axes are carried along unsharded: every axis index in
     the schedule is offset by ``blk.ndim - 3``.  ``operands`` supplies
-    named blocks to ops that need them.
+    named blocks to ops that need them (the fused k-space filter).
     """
     off = blk.ndim - 3
     ctx = dict(operands or {})

@@ -4,12 +4,17 @@ PyTorch versions (port of ``repro/kernels``).
 fft_matmul      four-step (Bailey) batched 1-D FFT (``csrc/fft4step.cu``)
 transpose_pack  rotated-block pack/unpack of the ring and pairwise
                 transposes (``csrc/rotate_blocks.cu``)
+hermitian       two-for-one Hermitian split and extend of the packed real
+                transforms (``csrc/hermitian.cu``)
+spectral_scale  fused k-space multiply, the spectral epilogue
+                (``csrc/spectral_scale.cu``)
 ops             complex-in/complex-out entry points
 ref             plain oracles for the tests
 _build          nvcc build, ctypes loading and launch counters
 """
 
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
-from repro_torch.kernels.ops import fft_matmul_1d
+from repro_torch.kernels.ops import fft_matmul_1d, spectral_scale_op
 
-__all__ = ["fft_matmul_1d", "launch_counts", "reset_launch_counts"]
+__all__ = ["fft_matmul_1d", "launch_counts", "reset_launch_counts",
+           "spectral_scale_op"]

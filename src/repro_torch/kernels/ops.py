@@ -1,10 +1,9 @@
 """Complex-in/complex-out entry points over the kernels.
 
-Port of ``repro/kernels/ops.py`` (``fft_matmul_1d``; ``spectral_scale_op``
-comes with its kernel).  The reference splits complex64 into float32
-planes here and merges them back, two extra passes; the Hopper kernel
-reads and writes complex64 as it is, so this layer only flattens the
-batch dimensions.
+Port of ``repro/kernels/ops.py``.  The reference splits complex64 into
+float32 planes here and merges them back, two extra passes; the Hopper
+kernels read and write complex64 as it is, so this layer only flattens
+the batch dimensions.
 """
 
 from __future__ import annotations
@@ -12,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import fft_matmul
+from repro_torch.kernels import fft_matmul, spectral_scale
 
 
 def fft_matmul_1d(x: torch.Tensor, sign: int = -1,
@@ -24,3 +23,16 @@ def fft_matmul_1d(x: torch.Tensor, sign: int = -1,
     shape = x.shape
     rows = x.reshape(-1, shape[-1]).contiguous()
     return fft_matmul.fft4step(rows, sign).reshape(shape)
+
+
+def spectral_scale_op(x: torch.Tensor, h: torch.Tensor, alpha: float = 1.0,
+                      device=None) -> torch.Tensor:
+    """alpha * x * h with h of shape (N,) broadcast against complex64 x
+    (..., N) (the broadcast kernel; x is scaled by alpha first), on
+    ``device`` (the CUDA card unless the caller passes ``device="cpu"``)."""
+    dev = resolve_device(device)
+    x, h = x.to(dev, torch.complex64), h.to(dev, torch.complex64)
+    shape = x.shape
+    rows = x.reshape(-1, shape[-1]).contiguous()
+    return spectral_scale.spectral_scale_planes(rows, h.contiguous(),
+                                                alpha).reshape(shape)

@@ -1,7 +1,7 @@
 """Plain oracles for the kernels of this package.
 
-Port of ``repro/kernels/ref.py`` (the FFT oracles; the spectral-scale and
-attention oracles come with their kernels).  ``torch.fft`` serves here as
+Port of ``repro/kernels/ref.py`` (the FFT and spectral-scale oracles;
+the attention oracle comes with its kernel).  ``torch.fft`` serves here as
 an oracle only: no path of the port calls it in place of a kernel.
 """
 
@@ -23,3 +23,9 @@ def ref_fft_1d_naive(x: np.ndarray, sign: int = -1) -> np.ndarray:
     n = x.shape[-1]
     w = np.exp(sign * 2j * np.pi * np.outer(np.arange(n), np.arange(n)) / n)
     return np.einsum("...n,nk->...k", x, w)
+
+
+def ref_spectral_scale(x: torch.Tensor, h: torch.Tensor,
+                       alpha: float = 1.0) -> torch.Tensor:
+    """y = alpha * x * h with h broadcast over leading batch dims."""
+    return (alpha * x) * h

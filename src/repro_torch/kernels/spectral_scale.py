@@ -1,0 +1,126 @@
+"""Fused complex multiply-scale in frequency space, y = (alpha x) h: the
+Hopper kernel ``csrc/spectral_scale.cu`` and its plain PyTorch version.
+
+Port of ``repro/kernels/spectral_scale.py``.  The CUDA kernel replaces
+both Pallas TPU kernels of that module, which share one body
+(``_scale_kernel``):
+
+  :func:`spectral_scale_planes`       h of shape (N,) broadcast over the
+                                      rows of x (B, N)
+  :func:`spectral_scale_planes_full`  h of the shape of x (the full 3-D
+                                      k-space filter of a spectral solver)
+
+The names are the reference's; the port takes interleaved complex64, not
+real/imaginary planes, so no split or merge pass surrounds the kernel.
+
+Bound on an H100: bytes — x read once, y written once, h read once
+(full) or cached (broadcast); ~8 flop per element.  The kernel scales x
+by alpha *before* the product, as the TPU kernel does, and rounds every
+product and sum on its own; the plain version repeats that order, so the
+two agree to the bit.
+
+:func:`spectral_scale` is the schedule-epilogue dispatcher with the
+reference's rule: complex64 with ``h.shape == x.shape`` goes to the
+kernel (on a CUDA tensor) or its plain version (on a CPU tensor);
+anything else takes the reference's plain expression ``x * h``, then
+``* alpha``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NAME = "spectral_scale"
+BROADCAST = "spectral_scale"
+FULL = "spectral_scale_full"
+
+# elements of the plain version's temporaries per block
+_PLAIN_ELEMS = 1 << 24
+
+
+def _launch(x: torch.Tensor, h: torch.Tensor, alpha: float, full: bool,
+            count: str) -> torch.Tensor:
+    for t, what in ((x, "x"), (h, "h")):
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"{count} runs on one cuda device; {what} is on "
+                             f"{t.device}")
+        if t.dtype != torch.complex64:
+            raise TypeError(f"{count} takes complex64, got {what} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{count} takes contiguous tensors ({what})")
+    rows, n = x.shape
+    y = torch.empty_like(x)
+    fn = _build.function(NAME, "spectral_scale_launch", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        status = fn(x.data_ptr(), h.data_ptr(), y.data_ptr(), rows, n,
+                    n if full else 0, float(alpha), sms,
+                    torch.cuda.current_stream().cuda_stream)
+    _build.check(status, count)
+    _build.count_launch(count)
+    return y
+
+
+def spectral_scale_planes(x: torch.Tensor, h: torch.Tensor,
+                          alpha: float = 1.0) -> torch.Tensor:
+    """(B, N) complex64 times the (N,) filter ``h`` broadcast over rows,
+    x scaled by ``alpha`` first."""
+    if x.ndim != 2 or h.shape != (x.shape[1],):
+        raise ValueError(f"expected x (B, N) and h (N,), got "
+                         f"{tuple(x.shape)} and {tuple(h.shape)}")
+    if x.device.type == "cpu":
+        return spectral_scale_plain(x, h, alpha)
+    return _launch(x, h, alpha, False, BROADCAST)
+
+
+def spectral_scale_planes_full(x: torch.Tensor, h: torch.Tensor,
+                               alpha: float = 1.0) -> torch.Tensor:
+    """(B, N) complex64 times the same-shape filter ``h``, x scaled by
+    ``alpha`` first."""
+    if x.ndim != 2 or h.shape != x.shape:
+        raise ValueError(f"expected x and h of one (B, N) shape, got "
+                         f"{tuple(x.shape)} and {tuple(h.shape)}")
+    if x.device.type == "cpu":
+        return spectral_scale_plain(x, h, alpha)
+    return _launch(x, h, alpha, True, FULL)
+
+
+def spectral_scale_plain(x: torch.Tensor, h: torch.Tensor,
+                         alpha: float = 1.0) -> torch.Tensor:
+    """The kernel's function in plain tensor ops, with the TPU kernel's
+    float32 plane arithmetic: ``xr = x.re * alpha``, ``xi = x.im *
+    alpha``, ``y = (xr hr - xi hi, xr hi + xi hr)``; ``h`` is (N,) or the
+    shape of ``x`` (B, N).  Row block by row block."""
+    rows, n = x.shape
+    y = torch.empty_like(x)
+    step = max(1, _PLAIN_ELEMS // max(1, n))
+    for r0 in range(0, rows, step):
+        xb = x[r0:r0 + step]
+        hb = h if h.ndim == 1 else h[r0:r0 + step]
+        xr = xb.real * alpha
+        xi = xb.imag * alpha
+        hr, hi = hb.real, hb.imag
+        y[r0:r0 + step] = torch.complex(xr * hr - xi * hi, xr * hi + xi * hr)
+    return y
+
+
+def spectral_scale(x: torch.Tensor, h: torch.Tensor,
+                   alpha: float = 1.0) -> torch.Tensor:
+    """Fused ``alpha * x * h`` on complex tensors (the schedule-epilogue
+    op); ``h`` must broadcast against ``x``."""
+    if x.dtype == torch.complex64 and h.shape == x.shape:
+        n = x.shape[-1]
+        y = spectral_scale_planes_full(x.contiguous().reshape(-1, n),
+                                       h.contiguous().reshape(-1, n), alpha)
+        return y.reshape(x.shape)
+    y = x * h
+    if alpha != 1.0:
+        y = y * alpha
+    return y

@@ -1,0 +1,161 @@
+"""repro_torch.real — real-to-complex / complex-to-real transforms.
+
+Port of ``repro/real``.  Two strategies:
+
+  "packed"  the two-for-one trick (``packing.py``): two real z-pencils
+            share one complex z transform, the spectrum is carried as
+            exactly Nz/2 shard-aligned complex bins (Nyquist folded
+            into DC), and every transpose/FFT stage after the first
+            moves/computes half of what the c2c pipeline would
+            (``pipeline.py``).  The hot unpack / Hermitian-extend steps
+            run in the Hopper kernels of ``repro_torch.kernels.hermitian``
+            under the ``"pallas"`` local impl.
+  "embed"   cast real -> complex, run c2c, keep the non-redundant half
+            (``repro_torch.core.rfft``).  Meshless only in the port so
+            far; a distributed plan that resolves to it raises.
+
+``resolve_strategy`` picks between them ("auto") with the reference's
+rule and reasons.  Public entry points:
+``repro_torch.core.rfft.rfft3d/irfft3d(strategy=...)`` and
+``Croft3D(..., problem="r2c")``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core import local_fft
+from repro_torch.core.decomposition import _mesh_axis_sizes
+from repro_torch.core.distributed import FFTOptions, _norm_scale
+from repro_torch.real import packing
+from repro_torch.real.pipeline import (PAIR_AXIS, build_packed_forward,
+                                       build_packed_inverse, fold_dc_plane,
+                                       packed_irfft3d, packed_rfft3d,
+                                       packed_unsupported_reason,
+                                       real_input_spec, unfold_dc_plane)
+
+STRATEGIES = ("auto", "packed", "embed")
+
+
+def is_multidevice(mesh) -> bool:
+    """True for a mesh of more than one rank (the reference's
+    ``math.prod(mesh.devices.shape) > 1``)."""
+    return mesh is not None and math.prod(
+        _mesh_axis_sizes(mesh).values()) > 1
+
+
+def _choose_pair_axis(nx: int, ny: int) -> Optional[int]:
+    """Axis to pair z-pencils along on a single device: prefer y (keeps
+    x contiguous for the later transforms), fall back to x."""
+    if ny % 2 == 0:
+        return -2
+    if nx % 2 == 0:
+        return -3
+    return None
+
+
+def packed_local_reason(shape: Sequence[int]) -> Optional[str]:
+    """None if the single-device packed path supports ``shape``."""
+    nx, ny = shape[-3], shape[-2]
+    if _choose_pair_axis(nx, ny) is None:
+        return (f"no even axis to pair z-pencils along (Nx={nx}, Ny={ny} "
+                "both odd)")
+    return None
+
+
+def local_rfft3d_packed(x: torch.Tensor, opts: Optional[FFTOptions] = None,
+                        norm: Optional[str] = None) -> torch.Tensor:
+    """Single-device packed r2c: real (..., Nx, Ny, Nz) -> (..., Nx, Ny, Nh).
+
+    Works for odd Nz too (the fold-free two-for-one keeps all Nh bins —
+    there is no shard alignment to preserve on one device).
+    """
+    if opts is None:
+        opts = FFTOptions()
+    nx, ny, nz = x.shape[-3], x.shape[-2], x.shape[-1]
+    reason = packed_local_reason(x.shape)
+    if reason is not None:
+        raise ValueError(f"packed r2c unsupported here: {reason}")
+    pair_axis = _choose_pair_axis(nx, ny)
+    fold = nz % 2 == 0  # odd Nz has no Nyquist bin; carry all Nh bins
+    c = packing.pack_two(x, pair_axis)
+    C = local_fft.fft_1d(c, -1, -1, impl=opts.stage_impl(0),
+                         plan_cache=opts.plan_cache)
+    S = packing.unpack_two(C, pair_axis, nh=nz // 2 + 1, fold=fold,
+                           use_pallas=opts.stage_impl(0) == "pallas")
+    S = local_fft.fft_1d(S, -2, -1, impl=opts.stage_impl(1),
+                         plan_cache=opts.plan_cache)
+    S = local_fft.fft_1d(S, -3, -1, impl=opts.stage_impl(2),
+                         plan_cache=opts.plan_cache)
+    # the fold stays valid under the (linear) y/x transforms; unfold the
+    # DC/Nyquist plane once, at the end, like the distributed pipeline
+    y = unfold_dc_plane(S) if fold else S
+    scale = _norm_scale((nx, ny, nz), -1, norm)
+    return y if scale is None else y * scale
+
+
+def local_irfft3d_packed(y: torch.Tensor, nz: int,
+                         opts: Optional[FFTOptions] = None,
+                         norm: Optional[str] = None) -> torch.Tensor:
+    """Single-device packed c2r: (..., Nx, Ny, Nh) -> real (..., Nx, Ny, Nz)."""
+    if opts is None:
+        opts = FFTOptions()
+    nx, ny = y.shape[-3], y.shape[-2]
+    reason = packed_local_reason((nx, ny, nz))
+    if reason is not None:
+        raise ValueError(f"packed c2r unsupported here: {reason}")
+    pair_axis = _choose_pair_axis(nx, ny)
+    fold = nz % 2 == 0
+    t = fold_dc_plane(y, nz) if fold else y
+    t = local_fft.fft_1d(t, -3, +1, impl=opts.stage_impl(0),
+                         plan_cache=opts.plan_cache)
+    t = local_fft.fft_1d(t, -2, +1, impl=opts.stage_impl(1),
+                         plan_cache=opts.plan_cache)
+    C = packing.repack_halves(t, pair_axis, nz, folded=fold,
+                              use_pallas=opts.stage_impl(2) == "pallas")
+    c = local_fft.fft_1d(C, -1, +1, impl=opts.stage_impl(2),
+                         plan_cache=opts.plan_cache)
+    x = packing.split_pairs(c, pair_axis)
+    return x * _norm_scale((nx, ny, nz), +1, norm)
+
+
+def unsupported_reason(shape: Sequence[int], mesh, decomp,
+                       opts: Optional[FFTOptions]) -> Optional[str]:
+    """Why the packed strategy cannot run this problem (None = it can)."""
+    if not is_multidevice(mesh):
+        return packed_local_reason(shape)
+    return packed_unsupported_reason(shape, decomp, mesh,
+                                     opts or FFTOptions())
+
+
+def resolve_strategy(strategy: Optional[str], shape: Sequence[int], mesh,
+                     decomp, opts: Optional[FFTOptions]) -> str:
+    """Resolve "auto" to "packed"/"embed"; validate explicit choices.
+
+    Explicitly requesting "packed" on an unsupported problem raises with
+    the reason; "auto" falls back to the embedding.
+    """
+    strategy = strategy or "auto"
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+    if strategy == "embed":
+        return "embed"
+    reason = unsupported_reason(shape, mesh, decomp, opts)
+    if reason is None:
+        return "packed"
+    if strategy == "packed":
+        raise ValueError(f"packed r2c unsupported here: {reason}")
+    return "embed"
+
+
+__all__ = [
+    "PAIR_AXIS", "STRATEGIES", "build_packed_forward", "build_packed_inverse",
+    "fold_dc_plane", "is_multidevice", "local_irfft3d_packed",
+    "local_rfft3d_packed", "packed_irfft3d", "packed_local_reason",
+    "packed_rfft3d", "packed_unsupported_reason", "packing",
+    "real_input_spec", "resolve_strategy", "unfold_dc_plane",
+    "unsupported_reason",
+]
