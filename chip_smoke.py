@@ -15,6 +15,15 @@ into ``build/``, then runs:
    with alpha in {1, 0.25}, within 1e-5 * max|ref|), each timed with
    CUDA events beside its plain version, one library call computing the
    same function where there is one, and its bound;
+1c. the flash-attention kernel against its plain version: the
+   reference test's four configurations and its bf16 case
+   (``tests/test_kernels_fft.py:84-115``), ragged lengths (Sq = Skv =
+   6145 at head_dim 120 and window 4096, Sq != Skv, rows with no valid
+   key), each element within 5e-5 (f32) or 2**-6 of its value plus
+   5e-5 (bf16); then the h2o-danube-3-4b prefill shape (B 2, S 6144, 32
+   heads over 8, head_dim 120, window 4096, bf16), held the same way and
+   timed beside its plain version and one
+   ``scaled_dot_product_attention`` call with the causal-window mask;
 2. the main path on one rank at full size: ``Croft3D`` forward and
    inverse of the croft-1024 grid (1024^3 complex64, an 8 GiB field)
    with ``local_impl="pallas"``, checked against ``torch.fft.fftn``
@@ -35,11 +44,21 @@ into ``build/``, then runs:
    unfold), pencil and slab x transpose impl x K, each rank's block
    against its slice of ``torch.fft.rfftn`` (1e-5 relative), bitwise
    equal across impls and K;
-4. one JSON line on the kernels, the card's name and power limit, and
+4. h2o-danube-3-4b serving at full width and depth (24 layers, bf16,
+   weights drawn on the card from the seed): ``make_serve_steps``
+   prefill of a 2 x 6144 ``synth_tokens`` prompt (past the 4096-token
+   window: the ring cache keeps the trailing window) and 32 greedy
+   tokens; 24 ``flash_attention`` launches in the prefill and none in
+   the decode, finite logits; the first decode step's logits within
+   5e-2 * max|ref| of the 24-layer bf16 train pass over the prompt and
+   its first token; then a float32 teacher-forcing check at full width
+   and 2 layers: the decode logits at position 6144 within
+   2e-4 * max|ref| of the train pass over 6145 tokens;
+5. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
-3b) and read just after it.
+3b, 4) and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -49,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+from collections import Counter
 import os
 import socket
 import statistics
@@ -64,6 +84,14 @@ FULL = 1024            # croft-1024, src/repro/configs/croft_fft.py
 DIST = 256             # phase-3 grid: 4 ranks share one card's memory and wire
 RANKS = 4
 HALF = 512             # c2c forward_filtered grid of phase 2b
+ARCH = "h2o-danube-3-4b"  # src/repro/configs/h2o_danube3_4b.py
+BATCH = 2              # phase-4 sequences
+PROMPT = 6144          # phase-4 prompt: past the model's 4096-token window
+GEN = 32               # phase-4 greedy tokens
+KV_BLOCK = 512         # the serve CLI's default
+TF_LAYERS = 2          # depth of the float32 teacher-forcing check
+TF_TOL = 2e-4          # tests/test_models_smoke.py:111-113
+BF16_TF_TOL = 5e-2     # tests/test_torch_lm_serve.py, bf16 serving
 FFT_TOL = 3e-4         # tests/test_kernels_fft.py:18
 FFT3_TOL = 5e-4        # tests/test_kernels_fft.py:78
 RT_TOL = 1e-4          # tests/test_distributed_fft.py:28
@@ -71,8 +99,14 @@ HERM_TOL = 1e-6        # tests/test_real_fft.py:149
 SCALE_TOL = 1e-5       # tests/test_kernels_fft.py:68
 RFFT_TOL = 5e-5        # tests/test_real_fft.py:160
 DIST_R2C_TOL = 1e-5    # tests/test_real_fft.py:338
+ATTN_TOL = 5e-5       # tests/test_kernels_fft.py:103 (float32, absolute)
+# bfloat16, per element: ATTN_BF16_REL·|want| + ATTN_TOL.  Both sides work
+# in float32 and round the result to bf16 at the end, each within 2**-8
+# of the value, so two ulps of the value are room to spare
+ATTN_BF16_REL = 2.0 ** -6
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_S = 67e12    # H100 SXM FP32 outside the tensor cores
+BF16_FLOP_S = 989e12   # H100 SXM bf16 dense tensor cores
 TIMEOUT_S = 900
 
 
@@ -94,8 +128,9 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+def bound_ms(nbytes: float, flops: float,
+             flop_s: float = FP32_FLOP_S) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -363,6 +398,116 @@ def phase_real_kernels(dev) -> dict:
     print(f"[1] {ss.BROADCAST} at ({rows}, {FULL}): {out[ss.BROADCAST]}",
           flush=True)
     del x, h
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 1c: the flash-attention kernel
+# ---------------------------------------------------------------------------
+
+# (b, sq, skv, h, kv, d, causal, window, dtype name)
+ATTN_CASES = (
+    # tests/test_kernels_fft.py:84-115: the reference's four and its bf16 case
+    (2, 256, 256, 4, 2, 64, True, None, "float32"),
+    (1, 128, 256, 8, 8, 32, True, 64, "float32"),
+    (1, 256, 256, 2, 1, 64, False, None, "float32"),
+    (1, 128, 128, 4, 4, 128, True, 32, "float32"),
+    (1, 128, 128, 2, 2, 64, True, None, "bfloat16"),
+    # ragged lengths at the model's head_dim and window
+    (1, 6145, 6145, 8, 2, 120, True, 4096, "float32"),
+    (1, 6145, 6145, 8, 2, 120, True, 4096, "bfloat16"),
+    (2, 77, 200, 8, 2, 120, True, 64, "float32"),
+    (1, 200, 300, 4, 2, 32, False, 50, "float32"),
+    # rows past skv + window - 1 see no valid key: every chunk is walked
+    (1, 300, 100, 2, 1, 64, True, 32, "float32"),
+)
+
+
+def attention_pairs(b, sq, skv, h, causal, window) -> int:
+    """Unmasked (query, key) pairs, positions 0..S-1 on both sides."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, skv - 1) if causal else skv - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return b * h * total
+
+
+def attention_err(got, want) -> tuple[float, float]:
+    """The largest |got - want| and the largest share of its element's
+    tolerance (ATTN_TOL in float32, ATTN_BF16_REL·|want| + ATTN_TOL in
+    bfloat16); the kernel passes when the share is at most 1."""
+    import torch
+    want = want.float()
+    diff = (got.float() - want).abs()
+    tol = (ATTN_TOL if got.dtype == torch.float32
+           else ATTN_BF16_REL * want.abs() + ATTN_TOL)
+    return diff.max().item(), (diff / tol).max().item()
+
+
+def phase_attention_kernel(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for b, sq, skv, h, kv, d, causal, window, dt in ATTN_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dtype)
+        k = torch.randn(b, skv, kv, d, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, skv, kv, d, device=dev, generator=gen).to(dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, share = attention_err(got, want)
+        print(f"[1c] flash_attention b={b} sq={sq} skv={skv} h={h} kv={kv} "
+              f"d={d} causal={causal} window={window} {dt}: max_abs_err="
+              f"{err:.3e}, worst err/tol {share:.3f}", flush=True)
+        check(share <= 1.0 and bool(torch.isfinite(got).all()),
+              f"flash_attention {(b, sq, skv, h, kv, d, causal, window, dt)}")
+        worst[dt] = max(worst[dt], err)
+
+    # the model's shape: the h2o-danube-3-4b prefill, q pre-scaled in bf16
+    # as the model passes it (scale 1)
+    b, s, h, kv, d, window = 2, PROMPT, 32, 8, 120, 4096
+    q = (torch.randn(b, s, h, d, device=dev, generator=gen)
+         * d ** -0.5).to(torch.bfloat16)
+    k = torch.randn(b, s, kv, d, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, s, kv, d, device=dev, generator=gen).to(torch.bfloat16)
+    run = lambda: fa.flash_attention(q, k, v, causal=True, window=window,
+                                     scale=1.0)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                             window=window, scale=1.0)
+    got, want = run(), plain()
+    err, share = attention_err(got, want)
+    print(f"[1c] flash_attention at the model shape ({b}, {s}, {h}, {d}) "
+          f"kv={kv} window={window} bf16: max_abs_err={err:.3e}, worst "
+          f"err/tol {share:.3f}, median |want| "
+          f"{want.float().abs().median().item():.3e}", flush=True)
+    check(share <= 1.0, "flash_attention at the model shape")
+    # the yardstick, never on the path: one SDPA call on the same inputs
+    # with the causal-window mask
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                             < window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=1.0, enable_gqa=True)
+    lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max().item()
+    del got, want
+    pairs = attention_pairs(b, s, s, h, True, window)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    b_ms, b_by = bound_ms(nbytes, 4.0 * d * pairs, BF16_FLOP_S)
+    out = {"flash_attention": dict(
+        ms=time_ms(run, reps=10), plain_ms=time_ms(plain, reps=3, warmup=1),
+        library_ms=time_ms(lib, reps=10), bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(worst["float32"], worst["bfloat16"], err),
+        shape=[b, s, h, kv, d], pairs=pairs, library_max_abs_err=lib_err)}
+    print(f"[1c] flash_attention at ({b}, {s}, {h}, {d}) kv={kv}: "
+          f"{out['flash_attention']}; max_abs_err f32 {worst['float32']:.3e}, "
+          f"bf16 {worst['bfloat16']:.3e}", flush=True)
+    del q, k, v, mask
     torch.cuda.empty_cache()
     return out
 
@@ -693,6 +838,155 @@ def phase_distributed() -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: h2o-danube-3-4b serving, full width and depth
+# ---------------------------------------------------------------------------
+
+def phase_serve(dev) -> dict:
+    """Prefill a BATCH x PROMPT prompt and decode GEN greedy tokens on the
+    24-layer bf16 model, hold the first decode step against its train
+    pass, then the float32 teacher-forcing check at full width and
+    TF_LAYERS depth; returns the serving run's launch counts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Stage, forward, init_caches, init_params
+    from repro_torch.train import (cast_to_compute, greedy_sample,
+                                   make_serve_steps)
+    from repro_torch.train.data import synth_tokens
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, t_init = _wall(lambda: cast_to_compute(
+        init_params(cfg, gen, dev), cfg.dtype))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gib = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 2**30
+    max_len = PROMPT + GEN
+    prefill, decode = make_serve_steps(cfg, BATCH, max_len, kv_block=KV_BLOCK,
+                                       device=dev)
+    prompts = synth_tokens(SEED, 0, BATCH, PROMPT, cfg.vocab)
+    peak_init = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    caches = init_caches(cfg, BATCH, max_len, dtype=torch.bfloat16,
+                         device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    (logits, caches), t_prefill = _wall(lambda: prefill(model, prompts,
+                                                        caches))
+    prefill_counts = launch_counts()
+    finite = torch.isfinite(logits).all()
+    tok = greedy_sample(logits)[:, None]
+    out = [tok]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GEN - 1):
+        logits, caches = decode(model, tok, caches, PROMPT + i)
+        if i == 0:
+            first_decode = logits
+        finite &= torch.isfinite(logits).all()
+        tok = greedy_sample(logits)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) * 1e3
+    decode_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pos = caches[0][0]["self"]["pos"]
+    tokens = torch.cat(out, dim=1).cpu()
+    print(f"[4] {ARCH} bf16, {cfg.n_layers} layers, {n_params} parameters "
+          f"({weight_gib:.2f} GiB): init {t_init:.1f} ms; prefill "
+          f"{BATCH}x{PROMPT} {t_prefill:.2f} ms; decode {GEN - 1} steps "
+          f"{t_decode:.2f} ms ({BATCH * (GEN - 1) / t_decode * 1e3:.1f} "
+          f"tok/s, {t_decode / (GEN - 1):.2f} ms/step); peak {peak_init:.2f} "
+          f"GiB at init (fp32 masters), {peak:.2f} GiB serving; "
+          f"launches prefill {prefill_counts} decode {decode_counts}; "
+          f"tokens {tokens[:, :8].tolist()}", flush=True)
+    check(bool(finite), "non-finite logits in phase 4")
+    check(prefill_counts.get("flash_attention", 0) == cfg.n_layers,
+          f"prefill flash_attention launches {prefill_counts}")
+    check(decode_counts.get("flash_attention", 0) == 0,
+          f"decode flash_attention launches {decode_counts}")
+    window = cfg.stages[0].pattern[0].attn.window
+    check(pos.numel() == window and int(pos.max()) == PROMPT + GEN - 2
+          and int(pos.min()) == PROMPT + GEN - 1 - window,
+          "ring cache positions after the decode")
+
+    # where one prefill's and one decode step's device time goes, by
+    # kernel (outside the count); the step's busy time against the mean
+    # step wall above is the device's busy share while decoding
+    from torch.profiler import ProfilerActivity, profile
+    for what, fn, top in (
+            ("prefill", lambda: prefill(model, prompts, caches), 8),
+            ("decode step", lambda: decode(model, tok, caches,
+                                           PROMPT + GEN - 1), 4)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+        busy = sum(e.device_time_total for e in rows) / 1e3
+        print(f"[4] profiled {what}: device busy {busy:.2f} ms, "
+              f"{sum(e.count for e in rows if e.device_time_total > 0)} "
+              f"device ops", flush=True)
+        for e in rows[:top]:
+            print(f"[4]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<4d} "
+                  f"{e.key[:90]}", flush=True)
+
+    # teacher forcing in bf16 at full depth: the first decode step (plain
+    # attention over the ring cache) == the train pass at PROMPT over the
+    # prompt and the first greedy token (the kernel on every layer)
+    del caches, logits
+    torch.cuda.empty_cache()
+    seq = torch.cat([torch.as_tensor(prompts, device=dev), out[0]], dim=1)
+    reset_launch_counts()
+    ref, _ = forward(model, cfg, seq, mode="train", kv_block=KV_BLOCK)
+    tf_counts = launch_counts()
+    ref = ref[:, PROMPT].float()
+    top = ref.abs().max().item()
+    err = (first_decode.float() - ref).abs().max().item()
+    print(f"[4] teacher forcing bf16, {cfg.n_layers} layers, S={PROMPT}: "
+          f"decode vs train max_abs_err {err:.3e} ({err / top:.2e}·max|ref|),"
+          f" tol {BF16_TF_TOL * top:.3e}; launches {tf_counts}", flush=True)
+    check(err <= BF16_TF_TOL * top, f"bf16 teacher forcing decode err {err}")
+    check(tf_counts.get("flash_attention", 0) == cfg.n_layers,
+          f"bf16 teacher-forcing flash_attention launches {tf_counts}")
+    del model, ref, first_decode
+    torch.cuda.empty_cache()
+
+    # teacher forcing in float32 at full width, depth cut to TF_LAYERS:
+    # decode at position PROMPT (plain attention over the ring cache) ==
+    # the train pass at PROMPT (the kernel over PROMPT + 1 tokens)
+    spec = cfg.stages[0].pattern[0]
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                stages=(Stage((spec,), TF_LAYERS),))
+    model = init_params(cfg32, gen, dev)
+    tokens = torch.as_tensor(synth_tokens(SEED, 1, BATCH, PROMPT + 1,
+                                          cfg.vocab), device=dev)
+    reset_launch_counts()
+    ref, _ = forward(model, cfg32, tokens, mode="train", kv_block=KV_BLOCK)
+    caches = init_caches(cfg32, BATCH, PROMPT + 1, dtype=torch.float32,
+                         device=dev)
+    pre, caches = forward(model, cfg32, tokens[:, :PROMPT], mode="prefill",
+                          caches=caches, kv_block=KV_BLOCK)
+    dec, _ = forward(model, cfg32, tokens[:, PROMPT:], mode="decode",
+                     caches=caches, start=PROMPT, kv_block=KV_BLOCK)
+    tf_counts = launch_counts()
+    top = ref.abs().max().item()
+    err = (dec[:, 0] - ref[:, PROMPT]).abs().max().item()
+    err_pre = (pre - ref[:, :PROMPT]).abs().max().item()
+    print(f"[4] teacher forcing f32, {TF_LAYERS} layers, S={PROMPT}: decode "
+          f"vs train max_abs_err {err:.3e}, prefill vs train {err_pre:.3e}, "
+          f"tol {TF_TOL * top:.3e}; launches {tf_counts}", flush=True)
+    check(err <= TF_TOL * top, f"teacher forcing decode err {err}")
+    check(err_pre <= TF_TOL * top, f"teacher forcing prefill err {err_pre}")
+    check(tf_counts.get("flash_attention", 0) == 2 * TF_LAYERS,
+          f"teacher-forcing flash_attention launches {tf_counts}")
+    del model, caches, ref, pre, dec
+    torch.cuda.empty_cache()
+    return dict(Counter(prefill_counts) + Counter(decode_counts))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -710,7 +1004,9 @@ def main() -> int:
 
     timings = phase_kernels(dev)
     timings.update(phase_real_kernels(dev))
-    paths = [phase_full(dev), phase_real_full(dev), *phase_distributed()]
+    timings.update(phase_attention_kernel(dev))
+    paths = [phase_full(dev), phase_real_full(dev), *phase_distributed(),
+             phase_serve(dev)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
@@ -725,6 +1021,8 @@ def main() -> int:
                            "src/repro/kernels/spectral_scale.py:41"),
         "spectral_scale_full": ("spectral_scale",
                                 "src/repro/kernels/spectral_scale.py:74"),
+        "flash_attention": ("flash_attention",
+                            "src/repro/kernels/flash_attention.py:95"),
     }
     kernels = []
     for name, (src, replaces) in ported.items():

@@ -1,0 +1,42 @@
+"""Config registry: ``get_config("<arch>")`` / ``--arch`` lookup.
+
+Port of ``repro/configs/__init__.py``.  The registry knows every arch of
+the reference; the port serves only the dense GQA model so far, and the
+other names raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = {
+    "mixtral-8x22b": None,
+    "deepseek-v2-236b": None,
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "gemma3-4b": None,
+    "yi-34b": None,
+    "yi-9b": None,
+    "whisper-base": None,
+    "recurrentgemma-9b": None,
+    "rwkv6-3b": None,
+    "paligemma-3b": None,
+    # bonus (beyond the assigned pool)
+    "fnet-350m": None,
+}
+
+ASSIGNED = [a for a in ARCHS if a != "fnet-350m"]
+
+
+def get_config(arch: str, smoke: bool = False):
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    if ARCHS[arch] is None:
+        raise NotImplementedError(
+            f"{arch} is not ported yet (ROADMAP.md queue 1 item 10: the LM "
+            "substrate beyond dense GQA serving)")
+    mod = importlib.import_module(ARCHS[arch])
+    return mod.smoke() if smoke else mod.full()
+
+
+__all__ = ["ARCHS", "ASSIGNED", "get_config"]

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels for the FFT hot spots, with their plain
-PyTorch versions (port of ``repro/kernels``).
+"""Hand-written Hopper kernels for the FFT hot spots and the LM's
+attention, with their plain PyTorch versions (port of ``repro/kernels``).
 
 fft_matmul      four-step (Bailey) batched 1-D FFT (``csrc/fft4step.cu``)
 transpose_pack  rotated-block pack/unpack of the ring and pairwise
@@ -8,6 +8,8 @@ hermitian       two-for-one Hermitian split and extend of the packed real
                 transforms (``csrc/hermitian.cu``)
 spectral_scale  fused k-space multiply, the spectral epilogue
                 (``csrc/spectral_scale.cu``)
+flash_attention fused causal/windowed GQA attention, the LM prefill
+                (``csrc/flash_attention.cu``)
 ops             complex-in/complex-out entry points
 ref             plain oracles for the tests
 _build          nvcc build, ctypes loading and launch counters

@@ -1,0 +1,182 @@
+"""Attention family: GQA/MQA, sliding-window, prefix-LM masks over one
+blockwise online-softmax core.
+
+Port of ``repro/models/attention.py`` (GQA only; MLA waits for its slice,
+``ROADMAP.md`` queue 1 item 10).  Masks are evaluated from explicit global
+position vectors, so full caches, ring (sliding-window) caches and offset
+decode queries share one code path: empty cache slots carry position -1
+and mask themselves out.  ``NEG_INF`` is finite so fully masked rows stay
+NaN-free.
+
+Self-attention over a whole segment that starts at position 0 (train and
+prefill passes, no prefix-LM span) is exactly the function of the
+hand-written flash-attention kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention`), and
+:func:`gqa_fwd` sends that case there; every other call (decode over the
+cache, a segment at an offset, prefix-LM) runs :func:`blockwise_attention`
+in plain torch, as the reference does.  The sharding hints of the
+reference (``kv_spec``, ``kv_local_spec``) have no counterpart: the port
+is meshless.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.config import AttentionSpec
+from repro_torch.models.layers import (apply_rope, master_param, rope_angles,
+                                       truncated_normal_)
+
+NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
+
+MLA_ITEM = "ROADMAP.md queue 1 item 10 (MLA attention)"
+
+
+class MaskSpec(NamedTuple):
+    causal: bool = True
+    window: Optional[int] = None     # sliding window (tokens back)
+    prefix_len: int = 0              # prefix-LM: bidirectional first P tokens
+
+
+def _mask_block(ms: MaskSpec, q_pos: torch.Tensor, k_pos: torch.Tensor):
+    """(Sq, Sk) boolean mask from global positions (k_pos < 0 = empty)."""
+    qi = q_pos[:, None]
+    ki = k_pos[None, :]
+    ok = ki >= 0
+    if ms.causal:
+        allowed = ki <= qi
+        if ms.prefix_len:
+            allowed = allowed | (ki < ms.prefix_len)
+        ok = ok & allowed
+    if ms.window is not None:
+        ok = ok & (qi - ki < ms.window)
+    return ok
+
+
+class GQA(nn.Module):
+    def __init__(self, d: int, a: AttentionSpec, device=None):
+        super().__init__()
+        self.wq = master_param(d, a.n_heads, a.head_dim, device=device)
+        self.wk = master_param(d, a.n_kv_heads, a.head_dim, device=device)
+        self.wv = master_param(d, a.n_kv_heads, a.head_dim, device=device)
+        self.wo = master_param(a.n_heads, a.head_dim, d, device=device)
+
+
+def init_gqa(d: int, a: AttentionSpec, generator=None, device=None) -> GQA:
+    p = GQA(d, a, device)
+    std = d ** -0.5
+    for w in (p.wq, p.wk, p.wv):
+        truncated_normal_(w.data, std, generator)
+    truncated_normal_(p.wo.data, (a.n_heads * a.head_dim) ** -0.5, generator)
+    return p
+
+
+def init_attention(d: int, a: AttentionSpec, generator=None, device=None):
+    if a.kind == "mla":
+        raise NotImplementedError(f"attention 'mla': {MLA_ITEM}")
+    return init_gqa(d, a, generator, device)
+
+
+# --------------------------------------------------------------------------
+# blockwise online-softmax core
+# --------------------------------------------------------------------------
+
+def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
+                        kv_block: int = 1024) -> torch.Tensor:
+    """q (B,Sq,H,hd) · k,v (B,Sk,KV,hd) -> (B,Sq,H,hd_v) in float32.
+
+    Online softmax over kv blocks (peak score memory O(Sq * kv_block)),
+    GQA grouping by reshaping q to (…, KV, G, hd).  ``q_pos`` (Sq,) /
+    ``k_pos`` (Sk,) are global indices.  Products accumulate in float32;
+    p is cast to v's dtype before the second product, as the reference
+    does.  The reference's ``remat_step`` is a backward-pass trade and has
+    no counterpart here (no gradients in this slice).
+    """
+    b, sq, h, hd = q.shape
+    _, sk, kv_heads, hd_v = v.shape
+    g = h // kv_heads
+    qg = q.reshape(b, sq, kv_heads, g, hd).float()
+    blk = min(kv_block, sk)
+    while sk % blk:            # largest divisor of sk not exceeding kv_block
+        blk -= 1
+    m = torch.full((b, sq, kv_heads, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, sq, kv_heads, g, hd_v, dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, sk, blk):
+        kj, vj = k[:, c0:c0 + blk], v[:, c0:c0 + blk]
+        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kj.float())
+        mask = _mask_block(ms, q_pos, k_pos[c0:c0 + blk])
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        scale_prev = torch.exp(m - m_new)
+        l = l * scale_prev + p.sum(-1)
+        acc = acc * scale_prev[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(vj.dtype).float(), vj.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, hd_v)
+
+
+# --------------------------------------------------------------------------
+# layer forwards.  Contract:
+#   attention_fwd(p, x, a, ms, q_pos, kv=None, k_pos=None, ...)
+#     -> (y, new_kv)
+#   kv is None        : self-attention over x (train / prefill);
+#                       new_kv = this segment's (k, v)
+#   kv = (k_buf,v_buf): attend over the provided buffers (decode cache with
+#                       the current token already written); new_kv echoes
+#                       them back
+# --------------------------------------------------------------------------
+
+def gqa_project_kv(p: GQA, x, a: AttentionSpec, positions):
+    """Project (and rope) this segment's k/v — used to fill decode caches."""
+    dt = x.dtype
+    k = torch.einsum("bsd,dgk->bsgk", x, p.wk.to(dt))
+    v = torch.einsum("bsd,dgk->bsgk", x, p.wv.to(dt))
+    if a.use_rope:
+        cos, sin = rope_angles(positions, a.head_dim, a.rope_theta)
+        k = apply_rope(k, cos, sin)
+    return k, v
+
+
+def gqa_fwd(p: GQA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
+            k_pos=None, *, start=None, kv_block: int = 1024):
+    """``start``: the Python int position of ``x[:, 0]`` when the caller
+    knows it (``Ctx.start``); a segment at 0 attends through the kernel."""
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    if a.use_rope:
+        cos, sin = rope_angles(q_pos, a.head_dim, a.rope_theta)
+        q = apply_rope(q, cos, sin)
+    if kv is None:
+        k, v = gqa_project_kv(p, x, a, q_pos)
+        k_pos = q_pos
+    else:
+        k, v = kv
+    scale = a.scale or a.head_dim ** -0.5
+    if kv is None and type(start) is int and start == 0 \
+            and ms.prefix_len == 0:
+        # positions 0..S-1 on both sides: the flash-attention kernel's case
+        o = flash_attention((q * scale).contiguous(), k.contiguous(),
+                            v.contiguous(), causal=ms.causal,
+                            window=ms.window, scale=1.0)
+    else:
+        o = blockwise_attention(q * scale, k, v, ms, q_pos, k_pos,
+                                kv_block=kv_block)
+    y = torch.einsum("bshk,hkd->bsd", o.to(dt), p.wo.to(dt))
+    return y, (k, v)
+
+
+def attention_fwd(p, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
+                  k_pos=None, *, start=None, kv_block: int = 1024):
+    if a.kind == "mla":
+        raise NotImplementedError(f"attention 'mla': {MLA_ITEM}")
+    return gqa_fwd(p, x, a, ms, q_pos, kv, k_pos, start=start,
+                   kv_block=kv_block)

@@ -1,0 +1,64 @@
+"""Carry the JAX package's parameter tree across to the port's modules.
+
+The reference (``repro/models/model.py:init_params``) keeps each stage's
+layers stacked on a leading repeat axis under ``stages[si]["p{pi}"]``;
+:func:`params_from_numpy` unstacks them into ``Model.stages[si]``, layer
+``t * len(pattern) + pi`` taking index ``t``.  Values stay float32 (the
+masters).  The tree's leaves are numpy arrays (``jax.tree.map(np.asarray,
+params)`` on the reference side), so this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model
+
+
+def _leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def load_tree(module: nn.Module, tree: dict, what: str, index=None) -> None:
+    """Copy ``tree``'s leaves (``[index]`` of each, when given) into the
+    module's parameters of the same dotted names; the two name sets must
+    be equal."""
+    leaves = _leaves(tree)
+    params = dict(module.named_parameters())
+    if set(leaves) != set(params):
+        raise ValueError(f"{what}: the tree has {sorted(leaves)}, the module "
+                         f"{sorted(params)}")
+    for name, p in params.items():
+        arr = np.asarray(leaves[name], dtype=np.float32)
+        if index is not None:
+            arr = arr[index]
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{what}.{name}: shape {arr.shape}, expected "
+                             f"{tuple(p.shape)}")
+        p.data.copy_(torch.from_numpy(np.array(arr)))  # a writable copy
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
+    """The reference's ``init_params`` tree (numpy leaves) as a
+    :class:`Model` on ``device`` (default: the CPU)."""
+    model = Model(cfg, device="meta").to_empty(device=device or "cpu")
+    load_tree(model.embed, tree["embed"], "embed")
+    load_tree(model.final_norm, tree["final_norm"], "final_norm")
+    if len(tree["stages"]) != len(cfg.stages):
+        raise ValueError(f"{len(tree['stages'])} stages in the tree, "
+                         f"{len(cfg.stages)} in the config")
+    for si, stage in enumerate(cfg.stages):
+        n = len(stage.pattern)
+        for pi in range(n):
+            for t in range(stage.repeat):
+                load_tree(model.stages[si][t * n + pi], tree["stages"][si][f"p{pi}"],
+                      f"stages[{si}].p{pi}[{t}]", index=t)
+    return model

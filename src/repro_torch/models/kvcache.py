@@ -1,0 +1,88 @@
+"""KV-cache structures: full and ring (sliding-window) attention caches.
+
+Port of ``repro/models/kvcache.py`` (GQA attention caches; the MLA-latent,
+recurrent and cross-attention caches wait for their slices, ``ROADMAP.md``
+queue 1 item 10).  Every cache carries an explicit per-slot global-position
+vector ``pos`` (-1 = empty); attention masks are evaluated from it, so
+full and ring caches share the attention code path.  ``pos`` is
+batch-agnostic (the serve loop decodes in lock-step).
+
+The reference returns new arrays; :func:`write_attn_cache` writes into
+the cache's tensors in place (the cache is the largest state of a decode
+step) and returns the same dict.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import AttentionSpec, LayerSpec
+
+LM_ITEM = "ROADMAP.md queue 1 item 10"
+
+
+def init_attn_cache(spec: AttentionSpec, batch: int, max_len: int, dtype,
+                    device=None) -> dict:
+    """Allocate an empty attention cache for one layer."""
+    if spec.kind == "mla":
+        raise NotImplementedError(f"MLA latent cache: {LM_ITEM}")
+    n_slots = min(max_len, spec.window) if spec.window else max_len
+    shape = (batch, n_slots, spec.n_kv_heads, spec.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((n_slots,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def init_layer_cache(spec: LayerSpec, batch: int, max_len: int, dtype,
+                     device=None) -> dict:
+    if spec.mixer != "attn" or spec.ffn == "rwkv_cm":
+        raise NotImplementedError(f"{spec.mixer}/{spec.ffn} layer cache: "
+                                  f"{LM_ITEM} (recurrent layers)")
+    if spec.cross_attn:
+        raise NotImplementedError(f"cross-attention cache: {LM_ITEM} "
+                                  "(encoder-decoder)")
+    return {"self": init_attn_cache(spec.attn, batch, max_len, dtype,
+                                    device)}
+
+
+def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                     start: int) -> dict:
+    """Insert a segment of S_new tokens at global positions
+    [start, start+S_new), in place.
+
+    Full cache: slots == positions.  Ring cache of W slots: slot = pos % W;
+    for segments longer than W only the last W entries land (their slots
+    form exactly one wrap-around window).  A shorter multi-token segment
+    must not wrap (the reference's clamped update would misplace it).
+    """
+    n_slots = cache["k"].shape[1]
+    s_new = k_new.shape[1]
+    if s_new > n_slots:  # only the trailing window survives
+        k_new = k_new[:, -n_slots:]
+        v_new = v_new[:, -n_slots:]
+        start = start + (s_new - n_slots)
+        s_new = n_slots
+    positions = start + torch.arange(s_new, dtype=torch.int32,
+                                     device=cache["pos"].device)
+    slot0 = start % n_slots
+    if s_new == n_slots:
+        # rotate the segment so slot i holds the entry with pos % W == i
+        cache["k"].copy_(torch.roll(k_new, slot0, dims=1))
+        cache["v"].copy_(torch.roll(v_new, slot0, dims=1))
+        cache["pos"].copy_(torch.roll(positions, slot0))
+        return cache
+    if s_new == 1:  # decode
+        cache["k"][:, slot0] = k_new[:, 0]
+        cache["v"][:, slot0] = v_new[:, 0]
+        cache["pos"][slot0] = start
+        return cache
+    # non-wrapping multi-token segment (prefill shorter than the window)
+    if slot0 + s_new > n_slots:
+        raise ValueError(f"a {s_new}-token segment at position {start} wraps "
+                         f"the {n_slots}-slot cache")
+    cache["k"][:, slot0:slot0 + s_new] = k_new
+    cache["v"][:, slot0:slot0 + s_new] = v_new
+    cache["pos"][slot0:slot0 + s_new] = positions
+    return cache

@@ -1,0 +1,184 @@
+"""Model assembly: embedding -> stages of layer patterns -> logits.
+
+Port of ``repro/models/model.py`` for dense attention stacks.  The
+reference scans each stage's ``repeat`` groups over parameters stacked on
+a leading repeat axis; here a stage is an ``nn.ModuleList`` of its layers,
+group by group (layer ``t * len(pattern) + pi`` is pattern entry ``pi`` of
+group ``t``), and the caches follow the same per-layer layout
+(:func:`init_caches`).  :func:`repro_torch.models.convert.params_from_numpy`
+carries a reference parameter tree across.
+
+Three modes share one layer implementation:
+  train    full-sequence pass, no cache I/O (inference only in this
+           slice: the teacher-forcing oracle; no gradients, no remat)
+  prefill  full sequence + writes the KV caches (serving cold start)
+  decode   single token against the caches (serving steady state)
+
+Recurrent, spectral, MoE, MLA, cross-attention, encoder and prefix-embed
+paths, and the sharded context (``ShardCtx``), wait for their slices
+(``ROADMAP.md`` queue 1 item 10) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import kvcache as kc
+from repro_torch.models import layers as L
+from repro_torch.models.attention import MaskSpec
+from repro_torch.models.config import LayerSpec, ModelConfig
+
+LM_ITEM = "ROADMAP.md queue 1 item 10"
+
+
+class Ctx(NamedTuple):
+    """Per-call context threaded through the layer stack."""
+    mode: str                      # "train" | "prefill" | "decode"
+    q_pos: torch.Tensor            # (S,) global positions of this segment
+    start: int                     # global position of q_pos[0]
+    prefix_len: int                # prefix-LM bidirectional span
+    kv_block: int
+
+
+def _unported(spec: LayerSpec) -> Optional[str]:
+    """What of the layer this slice does not serve (MLA and the RWKV
+    channel mix raise in their own ``init_*``)."""
+    if spec.mixer != "attn":
+        return f"mixer {spec.mixer!r}"
+    if spec.cross_attn:
+        return "cross-attention"
+    if spec.ffn == "moe":
+        return "ffn 'moe'"
+    return None
+
+
+# --------------------------------------------------------------------------
+# per-layer modules and forward
+# --------------------------------------------------------------------------
+
+class Layer(nn.Module):
+    """One layer: ``ln1``, the token mixer, ``ln2``, the channel mixer."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, generator=None,
+                 device=None):
+        super().__init__()
+        what = _unported(spec)
+        if what is not None:
+            raise NotImplementedError(f"{what}: {LM_ITEM}")
+        d = cfg.d_model
+        self.ln1 = L.init_norm(cfg.norm, d, device)
+        self.ln2 = L.init_norm(cfg.norm, d, device)
+        self.mixer = attn_lib.init_attention(d, spec.attn, generator, device)
+        self.ffn = L.init_ffn(d, cfg.d_ff, spec.ffn, generator, device)
+
+
+def _self_attention(p: Layer, h, spec: LayerSpec, cfg: ModelConfig,
+                    ctx: Ctx, cache):
+    a = spec.attn
+    ms = MaskSpec(causal=a.causal, window=a.window,
+                  prefix_len=ctx.prefix_len if cfg.prefix_lm else 0)
+    if ctx.mode == "train":
+        y, _ = attn_lib.attention_fwd(p.mixer, h, a, ms, ctx.q_pos,
+                                      start=ctx.start, kv_block=ctx.kv_block)
+        return y, cache
+    if ctx.mode == "prefill":
+        y, kv = attn_lib.attention_fwd(p.mixer, h, a, ms, ctx.q_pos,
+                                       start=ctx.start, kv_block=ctx.kv_block)
+        kc.write_attn_cache(cache["self"], kv[0], kv[1], ctx.start)
+        return y, cache
+    # decode: project this token, write, attend over the whole cache in one
+    # blockwise step
+    c = cache["self"]
+    k_new, v_new = attn_lib.gqa_project_kv(p.mixer, h, a, ctx.q_pos)
+    kc.write_attn_cache(c, k_new, v_new, ctx.start)
+    y, _ = attn_lib.attention_fwd(p.mixer, h, a, ms, ctx.q_pos,
+                                  kv=(c["k"], c["v"]), k_pos=c["pos"],
+                                  kv_block=c["k"].shape[1])
+    return y, cache
+
+
+def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
+              cache):
+    """-> (x, cache).  The reference's third output, the MoE auxiliary
+    loss, is zero for the dense layers of this slice and is dropped."""
+    h = L.norm_fwd(p.ln1, x, cfg.norm, cfg.norm_eps)
+    y, cache = _self_attention(p, h, spec, cfg, ctx, cache)
+    x = x + y
+    h2 = L.norm_fwd(p.ln2, x, cfg.norm, cfg.norm_eps)
+    return x + L.ffn_fwd(p.ffn, h2, spec.ffn), cache
+
+
+# --------------------------------------------------------------------------
+# whole-model init
+# --------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """The embedding, the stages (``nn.ModuleList`` of layers each) and the
+    final norm; parameters are fp32 masters drawn from ``generator``."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        if cfg.encoder is not None or cfg.frontend != "none":
+            raise NotImplementedError(f"encoder / modality frontend: {LM_ITEM}")
+        self.embed = L.init_embedding(cfg.vocab, cfg.d_model,
+                                      cfg.tie_embeddings, generator, device)
+        self.stages = nn.ModuleList(
+            nn.ModuleList(Layer(cfg, spec, generator, device)
+                          for _ in range(stage.repeat)
+                          for spec in stage.pattern)
+            for stage in cfg.stages)
+        self.final_norm = L.init_norm(cfg.norm, cfg.d_model, device)
+
+
+def init_params(cfg: ModelConfig, generator=None, device=None) -> Model:
+    return Model(cfg, generator, device)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device=None) -> list:
+    """Per-layer caches mirroring ``Model.stages``: ``caches[si][li]``."""
+    return [[kc.init_layer_cache(spec, batch, max_len, dtype, device)
+             for _ in range(stage.repeat) for spec in stage.pattern]
+            for stage in cfg.stages]
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
+            mode: str = "train", caches=None, start: int = 0,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None, kv_block: int = 1024,
+            shard: Any = None):
+    """Token ids (B, S) -> (logits (B, S, vocab), caches).
+
+    ``start``: global position of tokens[0] (the decode step index), a
+    Python int.  Prefill and decode write ``caches`` in place and return
+    them; caches is None in train mode.
+    """
+    if shard is not None:
+        raise NotImplementedError(f"sharded forward (ShardCtx): {LM_ITEM}")
+    if prefix_embeds is not None or enc_out is not None:
+        raise NotImplementedError(f"prefix embeddings / encoder memory: "
+                                  f"{LM_ITEM}")
+    if mode != "train" and caches is None:
+        raise ValueError(f"mode {mode!r} needs caches")
+    dtype = getattr(torch, cfg.dtype)
+    x = L.embed_fwd(model.embed, tokens, dtype, cfg.emb_scale_by_dim)
+    q_pos = start + torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+    ctx = Ctx(mode=mode, q_pos=q_pos, start=start, prefix_len=0,
+              kv_block=kv_block)
+    for si, stage in enumerate(cfg.stages):
+        for li, layer in enumerate(model.stages[si]):
+            cache = caches[si][li] if caches is not None else None
+            x, _ = layer_fwd(layer, x, stage.pattern[li % len(stage.pattern)],
+                             cfg, ctx, cache)
+    x = L.norm_fwd(model.final_norm, x, cfg.norm, cfg.norm_eps)
+    return L.logits_fwd(model.embed, x, cfg.logit_softcap), caches

@@ -9,13 +9,20 @@ This file imports no JAX, so it runs where only PyTorch is installed.
 import pytest
 import torch
 
-from repro_torch.kernels import (fft_matmul, hermitian, launch_counts,
-                                 spectral_scale, spectral_scale_op)
+from repro_torch.kernels import (fft_matmul, flash_attention, hermitian,
+                                 launch_counts, spectral_scale,
+                                 spectral_scale_op)
 from repro_torch.kernels import transpose_pack as tp
 
 KERNEL_TOL = 3e-4   # tests/test_kernels_fft.py:18
 HERM_TOL = 1e-6     # tests/test_real_fft.py:149
 SCALE_TOL = 1e-5    # tests/test_kernels_fft.py:68
+ATTN_TOL = 5e-5     # tests/test_kernels_fft.py:103 (float32, absolute)
+# bfloat16, per element: ATTN_BF16_REL·|want| + ATTN_TOL.  Both sides work
+# in float32 and round the result to bf16 at the end, each within 2**-8
+# of the value, so two ulps of the value are room to spare
+ATTN_BF16_REL = 2.0 ** -6
+TF_TOL = 2e-4       # tests/test_models_smoke.py:111-113
 
 
 @pytest.fixture
@@ -164,3 +171,103 @@ def test_croft3d_r2c_meshless_runs_the_kernels(cuda_device):
     assert (y - ref).abs().max().item() < 5e-5 * ref.abs().max().item()
     assert (back - x).abs().max().item() < 1e-4
     assert u.shape == x.shape and torch.isfinite(u).all()
+
+
+def _attention_close(got, want) -> bool:
+    """Every element within ATTN_TOL (float32) or ATTN_BF16_REL of its
+    value plus ATTN_TOL (bfloat16)."""
+    want = want.float()
+    tol = (ATTN_TOL if got.dtype == torch.float32
+           else ATTN_BF16_REL * want.abs() + ATTN_TOL)
+    return bool(((got.float() - want).abs() <= tol).all())
+
+
+def _attention_case(dev, b, sq, skv, h, kv, d, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(b, sq, h, d, device=dev, generator=gen).to(dtype),
+            torch.randn(b, skv, kv, d, device=dev, generator=gen).to(dtype),
+            torch.randn(b, skv, kv, d, device=dev, generator=gen).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 120, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None), (False, 40)])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, d, causal,
+                                              window, g):
+    # 333 is no multiple of the kernel's 128-row or 64-key tiles
+    q, k, v = _attention_case(cuda_device, 2, 333, 333, 2 * g, 2, d, dtype,
+                              seed=d + g)
+    got = _launched(flash_attention.NAME, lambda: flash_attention.
+                    flash_attention(q, k, v, causal=causal, window=window))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+    assert got.dtype == dtype and got.shape == (2, 333, 2 * g, d)
+    assert _attention_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (77, 200, True, 64),      # Sq < Skv
+    (300, 100, True, 32),     # rows past skv + window - 1: no valid key
+    (1, 129, False, None),    # one query row
+    (257, 1, True, None),     # one key
+])
+def test_flash_attention_kernel_ragged(cuda_device, sq, skv, causal, window):
+    q, k, v = _attention_case(cuda_device, 1, sq, skv, 8, 2, 120,
+                              torch.float32, seed=sq)
+    got = _launched(flash_attention.NAME, lambda: flash_attention.
+                    flash_attention(q, k, v, causal=causal, window=window))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+    assert torch.isfinite(got).all()
+    assert _attention_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _attention_case(cuda_device, 1, 16, 16, 4, 2, 64,
+                              torch.float32, seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q[:, ::2], k[:, ::2], v[:, ::2])
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="cuda"):
+        flash_attention.flash_attention(q, k.cpu(), v)
+    big = torch.zeros(1, 4, 2, 136, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(big, big, big)
+
+
+@pytest.mark.cuda
+def test_lm_serving_runs_the_kernel(cuda_device):
+    """The smoke model on the card in float32: the prefill and train passes
+    launch the kernel once per layer, the decode never, and the decode
+    logits at position S equal the train pass's (teacher forcing)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b", smoke=True),
+                              dtype="float32")
+    model = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        cuda_device)
+    s = 48                      # past the smoke model's 32-token window
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, s + 1), device=cuda_device,
+                           generator=gen)
+    before = launch_counts().get(flash_attention.NAME, 0)
+    ref, _ = forward(model, cfg, tokens, mode="train", kv_block=16)
+    caches = init_caches(cfg, 2, 64, dtype=torch.float32, device=cuda_device)
+    forward(model, cfg, tokens[:, :s], mode="prefill", caches=caches,
+            kv_block=16)
+    after_prefill = launch_counts()[flash_attention.NAME]
+    dec, _ = forward(model, cfg, tokens[:, s:], mode="decode", caches=caches,
+                     start=s, kv_block=16)
+    assert after_prefill == before + 2 * cfg.n_layers
+    assert launch_counts()[flash_attention.NAME] == after_prefill
+    top = ref.abs().max().item()
+    assert (dec[:, 0] - ref[:, s]).abs().max().item() <= TF_TOL * top
