@@ -8,7 +8,9 @@ into ``build/``, then runs:
 
 1. kernel parity — each kernel against its plain PyTorch version on the
    card (``fft4step`` at N in {16, 64, 256, 1024, 4096} x sign +-1 within
-   3e-4 * max|ref|; ``rotate_blocks`` at the ring shapes of phase 3,
+   3e-4 * max|ref|, then ``fft4step_axis`` on axes -1, -2 and -3 of the
+   1024^3 volume, each timed beside ``torch.fft.fft(x, dim=axis)`` and its
+   bytes bound; ``rotate_blocks`` at the ring shapes of phase 3,
    bitwise; the Hermitian unpack/extend at the 1024^3 packed spectrum
    and n in {16, 64, 256} within 1e-6 * max|ref|; the spectral scale,
    full-shape at the 1024^3 r2c spectrum and broadcast at (2^20, 1024)
@@ -23,18 +25,22 @@ into ``build/``, then runs:
    5e-5 (bf16); then the h2o-danube-3-4b prefill shape (B 2, S 6144, 32
    heads over 8, head_dim 120, window 4096, bf16), held the same way and
    timed beside its plain version and one
-   ``scaled_dot_product_attention`` call with the causal-window mask;
+   ``scaled_dot_product_attention`` call with the causal-window mask, and
+   each variant's time and launches there (the bf16 tensor-core kernel;
+   the FFMA kernel in float32);
 2. the main path on one rank at full size: ``Croft3D`` forward and
    inverse of the croft-1024 grid (1024^3 complex64, an 8 GiB field)
    with ``local_impl="pallas"``, checked against ``torch.fft.fftn``
-   (5e-4 * max|ref|) and by its round trip (< 1e-4);
+   (5e-4 * max|ref|) and by its round trip (< 1e-4); a profiled forward
+   prints its device busy time and copy launches (none may be left: the
+   kernel reads every axis where it lies);
 2b. the spectral-solver path at full size: the croft-1024 grid as a
    real field (1024^3 float32) through the packed r2c ``Croft3D``,
    forward (against ``torch.fft.rfftn``, 5e-5 * max|ref|) and inverse
    (round trip < 1e-4), ``poisson_solve`` (against
    ``irfftn(rfftn(f) / -k^2)``) and a z-derivative of its solution
-   through ``spectral_scale_op``; then a c2c ``forward_filtered`` at
-   512^3;
+   through ``spectral_scale_op``; a profiled r2c forward (busy time,
+   copy launches); then a c2c ``forward_filtered`` at 512^3;
 3. the distributed executor: 4 ranks on the one card, joined by a gloo
    process group, pencil 2x2 and slab 4 at 256^3, every transpose impl x
    K in {1, 2} x overlap mode x output layout, each rank's block checked
@@ -48,12 +54,12 @@ into ``build/``, then runs:
    weights drawn on the card from the seed): ``make_serve_steps``
    prefill of a 2 x 6144 ``synth_tokens`` prompt (past the 4096-token
    window: the ring cache keeps the trailing window) and 32 greedy
-   tokens; 24 ``flash_attention`` launches in the prefill and none in
-   the decode, finite logits; the first decode step's logits within
+   tokens; 24 ``flash_attention`` launches in the prefill, all on the
+   bf16 tensor-core variant, and none in the decode, finite logits; the first decode step's logits within
    5e-2 * max|ref| of the 24-layer bf16 train pass over the prompt and
    its first token; then a float32 teacher-forcing check at full width
-   and 2 layers: the decode logits at position 6144 within
-   2e-4 * max|ref| of the train pass over 6145 tokens;
+   and 2 layers (the FFMA variant): the decode logits at position 6144
+   within 2e-4 * max|ref| of the train pass over 6145 tokens;
 5. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
@@ -154,6 +160,34 @@ def check(ok: bool, what: str) -> None:
 # phase 1: kernel parity and timing
 # ---------------------------------------------------------------------------
 
+def phase_fft_axes(x) -> dict:
+    """``fft4step_axis`` on each axis of the 1024^3 volume x, where the
+    axis lies (outer, N, inner) = (2^20, 1024, 1), (1024, 1024, 1024) and
+    (1, 1024, 2^20): each held against its plain version and timed beside
+    ``torch.fft.fft(x, dim=axis)`` and the bytes bound."""
+    import torch
+    from repro_torch.kernels import fft_matmul
+    n = x.shape[-1]
+    nbytes = 2 * x.numel() * 8 + 3 * n * 8
+    b_ms, b_by = bound_ms(nbytes, 5.0 * n * math.log2(n) * x.numel() / n)
+    out = {}
+    for axis in (-1, -2, -3):
+        y = fft_matmul.fft4step_axis(x, axis, -1)
+        ref = fft_matmul.fft4step_axis_plain(x, axis, -1)
+        err, top = max_abs_diff(y, ref), max_abs(ref)
+        del y, ref
+        torch.cuda.empty_cache()
+        check(err <= FFT_TOL * top, f"fft4step axis {axis}")
+        out[axis] = dict(
+            ms=time_ms(lambda: fft_matmul.fft4step_axis(x, axis, -1)),
+            library_ms=time_ms(lambda: torch.fft.fft(x, dim=axis)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            tol=FFT_TOL * top)
+        print(f"[1] fft4step_axis {tuple(x.shape)} axis {axis}: "
+              f"{out[axis]}", flush=True)
+    return out
+
+
 def phase_kernels(dev) -> dict:
     import torch
     from repro_torch.kernels import fft_matmul, transpose_pack
@@ -178,6 +212,8 @@ def phase_kernels(dev) -> dict:
                 worst = max(worst, err)
             del y, ref
         if n == FULL:
+            axes = phase_fft_axes(x.view(FULL, FULL, FULL))
+            worst = max(worst, *(a["max_abs_err"] for a in axes.values()))
             # the main path's shape: one axis of the 1024^3 grid
             k_ms = time_ms(lambda: fft_matmul.fft4step(x, -1))
             p_ms = time_ms(lambda: fft_matmul.fft4step_plain(x, -1))
@@ -201,6 +237,7 @@ def phase_kernels(dev) -> dict:
         del x
         torch.cuda.empty_cache()
     out["fft4step"]["max_abs_err"] = worst
+    out["fft4step"]["axes"] = axes
     print(f"[1] fft4step at ({1 << 20}, {FULL}): {out['fft4step']}", flush=True)
 
     # rotate_blocks at the ring shapes of phase 3 (one rank's 256^3/4 block)
@@ -245,6 +282,37 @@ def phase_kernels(dev) -> dict:
 # phase 2: the main path on one rank, full size
 # ---------------------------------------------------------------------------
 
+def is_copy(key: str) -> bool:
+    """A device op that only moves elements: PyTorch's copy kernels (what
+    ``.contiguous()`` of a permuted view launches) and device memcpys;
+    ``torch.cat``'s own kernel is counted apart."""
+    k = key.lower()
+    return ("copy_kernel" in k or "memcpy" in k) and "cat" not in k
+
+
+def profile_device(fn, phase: str, what: str, top: int) -> tuple:
+    """Run ``fn`` once under the profiler; print its device busy time, the
+    copy launches in it and its top kernels; return (busy ms, copies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    rows = [e for e in rows if e.device_time_total > 0]
+    busy = sum(e.device_time_total for e in rows) / 1e3
+    copies = [e for e in rows if is_copy(e.key)]
+    n_copies = sum(e.count for e in copies)
+    print(f"[{phase}] profiled {what}: device busy {busy:.2f} ms, "
+          f"{sum(e.count for e in rows)} device ops, {n_copies} copy "
+          f"launches ({sum(e.device_time_total for e in copies) / 1e3:.2f} "
+          f"ms)", flush=True)
+    for e in rows[:top]:
+        print(f"[{phase}]   {e.device_time_total / 1e3:8.2f} ms  "
+              f"x{e.count:<4d} {e.key[:90]}", flush=True)
+    return busy, n_copies
+
+
 def phase_full(dev) -> dict:
     import torch
     from repro_torch.core import Croft3D, FFTOptions
@@ -281,16 +349,8 @@ def phase_full(dev) -> dict:
     torch.cuda.empty_cache()
     # where one forward's device time goes, by kernel (the launches made
     # here are outside the counted run above)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        plan.forward(x)
-        torch.cuda.synchronize()
-    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
-    busy = sum(e.device_time_total for e in rows) / 1e3
-    print(f"[2] profiled forward: device busy {busy:.2f} ms", flush=True)
-    for e in rows[:6]:
-        print(f"[2]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<3d} "
-              f"{e.key[:90]}", flush=True)
+    busy, copies = profile_device(lambda: plan.forward(x), "2", "forward", 6)
+    check(copies == 0, f"{copies} copy launches in the c2c forward")
     del x
     torch.cuda.empty_cache()
     return counts
@@ -450,8 +510,10 @@ def phase_attention_kernel(dev) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    before = launch_counts()
     for b, sq, skv, h, kv, d, causal, window, dt in ATTN_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn(b, sq, h, d, device=dev, generator=gen).to(dtype)
@@ -467,6 +529,10 @@ def phase_attention_kernel(dev) -> dict:
         check(share <= 1.0 and bool(torch.isfinite(got).all()),
               f"flash_attention {(b, sq, skv, h, kv, d, causal, window, dt)}")
         worst[dt] = max(worst[dt], err)
+    after = launch_counts()
+    print("[1c] parity launches by variant: " + ", ".join(
+        f"{v} {after.get(v, 0) - before.get(v, 0)}" for v in (fa.TC, fa.FFMA)),
+        flush=True)
 
     # the model's shape: the h2o-danube-3-4b prefill, q pre-scaled in bf16
     # as the model passes it (scale 1)
@@ -486,6 +552,7 @@ def phase_attention_kernel(dev) -> dict:
           f"err/tol {share:.3f}, median |want| "
           f"{want.float().abs().median().item():.3e}", flush=True)
     check(share <= 1.0, "flash_attention at the model shape")
+    check(fa.variant(q, k, v) == fa.TC, "the model shape is not on wgmma")
     # the yardstick, never on the path: one SDPA call on the same inputs
     # with the causal-window mask
     pos = torch.arange(s, device=dev)
@@ -499,15 +566,30 @@ def phase_attention_kernel(dev) -> dict:
     pairs = attention_pairs(b, s, s, h, True, window)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     b_ms, b_by = bound_ms(nbytes, 4.0 * d * pairs, BF16_FLOP_S)
+    before = launch_counts()
+    tc_ms = time_ms(run, reps=10)
+    tc_launches = launch_counts().get(fa.TC, 0) - before.get(fa.TC, 0)
     out = {"flash_attention": dict(
-        ms=time_ms(run, reps=10), plain_ms=time_ms(plain, reps=3, warmup=1),
+        ms=tc_ms, plain_ms=time_ms(plain, reps=3, warmup=1),
         library_ms=time_ms(lib, reps=10), bound_ms=b_ms, bound_by=b_by,
         max_abs_err=max(worst["float32"], worst["bfloat16"], err),
         shape=[b, s, h, kv, d], pairs=pairs, library_max_abs_err=lib_err)}
     print(f"[1c] flash_attention at ({b}, {s}, {h}, {d}) kv={kv}: "
           f"{out['flash_attention']}; max_abs_err f32 {worst['float32']:.3e}, "
           f"bf16 {worst['bfloat16']:.3e}", flush=True)
-    del q, k, v, mask
+    # the FFMA variant at the same shape, in float32 (what it serves)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    ffma = lambda: fa.flash_attention(q32, k32, v32, causal=True,
+                                      window=window, scale=1.0)
+    before = launch_counts()
+    ffma_ms = time_ms(ffma, reps=3, warmup=1)
+    ffma_launches = launch_counts().get(fa.FFMA, 0) - before.get(fa.FFMA, 0)
+    print(f"[1c] variants at the model shape: {fa.TC} {tc_ms:.3f} ms (bf16, "
+          f"{tc_launches} launches), {fa.FFMA} {ffma_ms:.3f} ms (f32, "
+          f"{ffma_launches} launches); "
+          f"sdpa {out['flash_attention']['library_ms']:.3f} ms, bound "
+          f"{b_ms:.3f} ms", flush=True)
+    del q, k, v, mask, q32, k32, v32
     torch.cuda.empty_cache()
     return out
 
@@ -591,16 +673,7 @@ def phase_real_full(dev) -> dict:
         check("fold_filter" in str(e), f"meshless fold=True: {e}")
 
     # where one forward's device time goes, by kernel (outside the count)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        plan.forward(x)
-        torch.cuda.synchronize()
-    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
-    busy = sum(e.device_time_total for e in rows) / 1e3
-    print(f"[2b] profiled r2c forward: device busy {busy:.2f} ms", flush=True)
-    for e in rows[:8]:
-        print(f"[2b]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<3d} "
-              f"{e.key[:90]}", flush=True)
+    profile_device(lambda: plan.forward(x), "2b", "r2c forward", 8)
     del x
     torch.cuda.empty_cache()
 
@@ -849,6 +922,7 @@ def phase_serve(dev) -> dict:
     import dataclasses
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import Stage, forward, init_caches, init_params
     from repro_torch.train import (cast_to_compute, greedy_sample,
@@ -905,6 +979,8 @@ def phase_serve(dev) -> dict:
     check(bool(finite), "non-finite logits in phase 4")
     check(prefill_counts.get("flash_attention", 0) == cfg.n_layers,
           f"prefill flash_attention launches {prefill_counts}")
+    check(prefill_counts.get(fa.TC, 0) == cfg.n_layers,
+          f"prefill launches not all on the tensor cores: {prefill_counts}")
     check(decode_counts.get("flash_attention", 0) == 0,
           f"decode flash_attention launches {decode_counts}")
     window = cfg.stages[0].pattern[0].attn.window
@@ -915,22 +991,9 @@ def phase_serve(dev) -> dict:
     # where one prefill's and one decode step's device time goes, by
     # kernel (outside the count); the step's busy time against the mean
     # step wall above is the device's busy share while decoding
-    from torch.profiler import ProfilerActivity, profile
-    for what, fn, top in (
-            ("prefill", lambda: prefill(model, prompts, caches), 8),
-            ("decode step", lambda: decode(model, tok, caches,
-                                           PROMPT + GEN - 1), 4)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
-        busy = sum(e.device_time_total for e in rows) / 1e3
-        print(f"[4] profiled {what}: device busy {busy:.2f} ms, "
-              f"{sum(e.count for e in rows if e.device_time_total > 0)} "
-              f"device ops", flush=True)
-        for e in rows[:top]:
-            print(f"[4]   {e.device_time_total / 1e3:8.2f} ms  x{e.count:<4d} "
-                  f"{e.key[:90]}", flush=True)
+    profile_device(lambda: prefill(model, prompts, caches), "4", "prefill", 8)
+    profile_device(lambda: decode(model, tok, caches, PROMPT + GEN - 1), "4",
+                   "decode step", 4)
 
     # teacher forcing in bf16 at full depth: the first decode step (plain
     # attention over the ring cache) == the train pass at PROMPT over the
@@ -979,7 +1042,8 @@ def phase_serve(dev) -> dict:
           f"tol {TF_TOL * top:.3e}; launches {tf_counts}", flush=True)
     check(err <= TF_TOL * top, f"teacher forcing decode err {err}")
     check(err_pre <= TF_TOL * top, f"teacher forcing prefill err {err_pre}")
-    check(tf_counts.get("flash_attention", 0) == 2 * TF_LAYERS,
+    check(tf_counts.get("flash_attention", 0) == 2 * TF_LAYERS
+          and tf_counts.get(fa.FFMA, 0) == 2 * TF_LAYERS,
           f"teacher-forcing flash_attention launches {tf_counts}")
     del model, caches, ref, pre, dec
     torch.cuda.empty_cache()

@@ -11,9 +11,10 @@ each axis; here four interchangeable implementations:
 - ``"pallas"``     the hand-written Hopper kernel (``kernels/fft_matmul``);
                    the name is the reference's, kept so tokens match
 
-All operate along the *last* axis; callers move axes.  Forward sign=-1,
-inverse sign=+1 unnormalized (normalization applied at the 3-D level, eq.
-(2) of the paper).
+All but ``"pallas"`` operate along the *last* axis and ``fft_1d`` moves
+the axis for them; the kernel transforms any axis in place.  Forward
+sign=-1, inverse sign=+1 unnormalized (normalization applied at the 3-D
+level, eq. (2) of the paper).
 """
 
 from __future__ import annotations
@@ -123,11 +124,10 @@ def fft_1d(x: torch.Tensor, axis: int, sign: int = -1, *,
            impl: str = "matmul", plan_cache: bool = True) -> torch.Tensor:
     """1-D FFT along ``axis`` with the chosen implementation."""
     if impl == "pallas":
-        # the Hopper kernel; it takes the transform axis last and
-        # contiguous, which fft_matmul_1d's reshape provides
-        from repro_torch.kernels import ops as kernel_ops
-        fn = lambda v: kernel_ops.fft_matmul_1d(v, sign, device=v.device)
-    elif impl == "xla":
+        # the Hopper kernel reads the transform axis where it lies
+        from repro_torch.kernels import fft_matmul
+        return fft_matmul.fft4step_axis(x, axis, sign)
+    if impl == "xla":
         fn = lambda v: fft_xla(v, sign)
     else:
         base = _IMPLS[impl]

@@ -138,6 +138,16 @@ class FFTPlan:
             tw = None
         return w1, w2, tw
 
+    def twiddles_t_torch(self, device) -> torch.Tensor:
+        """The (n2, n1) twiddle table transposed to (n1, n2) on the host,
+        as the Hopper kernel reads it, on ``device`` (cached)."""
+        key = ("tw_t", torch.device(device))
+        tw_t = self._on_device.get(key)
+        if tw_t is None:
+            tw_t = torch.from_numpy(np.ascontiguousarray(self.tw.T)).to(device)
+            self._on_device[key] = tw_t
+        return tw_t
+
 
 def _torch_dtype(dtype) -> torch.dtype:
     return {np.dtype("complex64"): torch.complex64,

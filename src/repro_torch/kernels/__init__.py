@@ -1,14 +1,16 @@
 """Hand-written Hopper kernels for the FFT hot spots and the LM's
 attention, with their plain PyTorch versions (port of ``repro/kernels``).
 
-fft_matmul      four-step (Bailey) batched 1-D FFT (``csrc/fft4step.cu``)
+fft_matmul      four-step (Bailey) 1-D FFT along any axis, in place
+                (``csrc/fft4step.cu``)
 transpose_pack  rotated-block pack/unpack of the ring and pairwise
                 transposes (``csrc/rotate_blocks.cu``)
 hermitian       two-for-one Hermitian split and extend of the packed real
                 transforms (``csrc/hermitian.cu``)
 spectral_scale  fused k-space multiply, the spectral epilogue
                 (``csrc/spectral_scale.cu``)
-flash_attention fused causal/windowed GQA attention, the LM prefill
+flash_attention fused causal/windowed GQA attention, the LM prefill:
+                bf16 on the tensor cores, float32 in FFMA
                 (``csrc/flash_attention.cu``)
 ops             complex-in/complex-out entry points
 ref             plain oracles for the tests

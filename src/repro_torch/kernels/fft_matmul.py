@@ -2,25 +2,29 @@
 kernel ``csrc/fft4step.cu`` and its plain PyTorch version.
 
 Port of ``repro/kernels/fft_matmul.py``.  The CUDA kernel replaces the
-Pallas TPU kernel ``fft4step_planes`` (``_fft4step_kernel``): a
-stacked-real DFT over n1, the twiddle multiply, a DFT over n2 and the
-transposed write k = k1 + n1·k2, for power-of-two N <= 4096.
+Pallas TPU kernel ``fft4step_planes`` (``_fft4step_kernel``): a DFT over
+n1, the twiddle multiply, a DFT over n2 and the transposed write
+k = k1 + n1·k2, for power-of-two N <= 4096.
 
-Bound on an H100: memory — one pass over (B, N) complex64 reads and
-writes 16·B·N bytes, while the 5·N·log2 N FFT count is ~6x below the
-FP32 roofline at N = 1024.  The dense DFT stages cost ~10x that count in
-FMAs, so the first FFMA design runs compute-bound; ``csrc/fft4step.cu``
-says what its design does about it and what is left for a tensor-core
-version.
+Bound on an H100: memory — one pass over a complex64 tensor reads and
+writes 16 bytes a point, while the 5·N·log2 N FFT count is ~6x below the
+FP32 roofline at N = 1024.  The kernel runs both sub-DFTs as radix-2
+FFTs held in registers, so it does that count and has only the bytes to
+move; ``csrc/fft4step.cu`` says how it is laid out.
 
-A tensor on the CPU goes to :func:`fft4step_plain`, which repeats the
-TPU kernel's arithmetic (stacked-real products in float32); a CUDA tensor
-launches the kernel or raises.
+Two entry points: :func:`fft4step_axis` transforms any axis of a
+tensor where it lies (the kernel reads a contiguous (outer, N, inner)
+view), and :func:`fft4step`, the reference-shaped one, takes (B, N)
+rows, the inner = 1 case.  A tensor on the CPU goes to the plain version
+(:func:`fft4step_axis_plain`, :func:`fft4step_plain`), which repeats
+the TPU kernel's arithmetic (stacked-real products in float32); a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -41,33 +45,59 @@ def _checked_plan(n: int, sign: int) -> plan_lib.FFTPlan:
 
 
 def fft4step(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
-    """Batched FFT over the rows of a (B, N) complex64 tensor; N a power
-    of two <= ``MAX_TWO_LEVEL``.  Unnormalized, ``sign`` -1 forward."""
+    """Batched FFT over the rows of a contiguous (B, N) complex64 tensor;
+    N a power of two <= ``MAX_TWO_LEVEL``.  Unnormalized, ``sign`` -1
+    forward."""
     if x.ndim != 2:
         raise ValueError(f"fft4step takes (B, N) rows, got shape {tuple(x.shape)}")
-    plan = _checked_plan(x.shape[-1], sign)
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError("fft4step takes a contiguous tensor")
+    return fft4step_axis(x, -1, sign)
+
+
+def fft4step_axis(x: torch.Tensor, axis: int, sign: int = -1) -> torch.Tensor:
+    """FFT along ``axis`` of a complex64 tensor of any rank, N =
+    ``x.shape[axis]`` a power of two <= ``MAX_TWO_LEVEL``; the output has
+    x's shape and layout.  A non-contiguous input is copied once to a
+    contiguous one first.  Unnormalized, ``sign`` -1 forward."""
+    if x.ndim == 0:
+        raise ValueError("fft4step_axis takes a tensor with an axis")
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    plan = _checked_plan(n, sign)
     if x.device.type == "cpu":
-        return fft4step_plain(x, sign)
+        return fft4step_axis_plain(x, axis, sign)
     if x.device.type != "cuda":
         raise ValueError(f"fft4step runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.complex64:
         raise TypeError(f"fft4step takes complex64, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("fft4step takes a contiguous tensor")
-    w1, w2, tw = plan.constants_torch(x.device)
-    # n2 == 1 reads no w2/tw: any valid pointer will do
-    w2 = w1 if w2 is None else w2
-    tw = w1 if tw is None else tw
+    x = x.contiguous()
+    outer = math.prod(x.shape[:axis])
+    inner = math.prod(x.shape[axis + 1:])
+    # n2 == 1 reads no twiddles: any valid pointer will do
+    tw = x if plan.tw is None else plan.twiddles_t_torch(x.device)
     y = torch.empty_like(x)
-    fn = _build.function(NAME, "fft4step_launch", [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn = _build.function(NAME, "fft4step_launch", [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), y.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                    tw.data_ptr(), x.shape[0], plan.n1, plan.n2,
+        status = fn(x.data_ptr(), y.data_ptr(), tw.data_ptr(), outer, inner,
+                    plan.n1, plan.n2, sign,
                     torch.cuda.current_stream().cuda_stream)
     _build.check(status, NAME)
     _build.count_launch(NAME)
     return y
+
+
+def fft4step_axis_plain(x: torch.Tensor, axis: int,
+                        sign: int = -1) -> torch.Tensor:
+    """:func:`fft4step_axis` in plain tensor ops: the axis moved last, the
+    rows through :func:`fft4step_plain`, the axis moved back."""
+    axis = axis % x.ndim
+    rows = x.movedim(axis, -1)
+    shape = rows.shape
+    y = fft4step_plain(rows.reshape(-1, shape[-1]), sign)
+    return y.reshape(shape).movedim(-1, axis)
 
 
 def _complex_mul(ar, ai, br, bi):

@@ -12,15 +12,25 @@ positions 0..S-1 on both sides, masked scores set to the finite
 max and sum and the accumulator in float32, the output in q's dtype.
 q is (B, Sq, H, D), k and v (B, Skv, KV, D), bfloat16 or float32.
 
-Bound on an H100: operations, 4·D flop per unmasked (query, key) pair
-(``csrc/flash_attention.cu`` says how the kernel is laid out).  The
-reference's ``q_block``/``kv_chunk``/``interpret`` knobs are the TPU
-kernel's tiling and have no counterpart: the CUDA kernel picks its own
-tiles and takes any Sq and Skv, not only multiples of 128.
+Bound on an H100: operations, 4·D flop per unmasked (query, key) pair.
+The reference's ``q_block``/``kv_chunk``/``interpret`` knobs are the TPU
+kernel's tiling and have no counterpart: the CUDA kernels pick their own
+tiles and take any Sq and Skv, not only multiples of 128.
 
 A tensor on the CPU goes to :func:`flash_attention_plain`, the TPU
-kernel's chunked online softmax in torch; a CUDA tensor launches the
-kernel or raises.
+kernel's chunked online softmax in torch; a CUDA tensor launches one of
+two kernels of ``csrc/flash_attention.cu`` or raises.  Which one is a
+rule of dtype and shape (:func:`variant`), never a retry:
+
+- ``TC``, bf16 on the tensor cores (``wgmma``, K/V staged by TMA): q in
+  bfloat16, both head dims multiples of 8 (TMA describes rows whose byte
+  strides are multiples of 16) and q, k, v starting on 16-byte
+  boundaries.  It splits p into two bf16 terms before the P·V product,
+  which keeps the Pallas kernel's float32 p to ~2^-17 relative.
+- ``FFMA``, FP32 FFMA: float32 (on the tensor cores it would run as
+  TF32, which misses the 5e-5 check) and every other bf16 shape.
+
+Each launch counts under ``NAME`` and under its variant's name.
 """
 
 from __future__ import annotations
@@ -32,8 +42,10 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "flash_attention"
+TC = "flash_attention_wgmma"    # the bf16 tensor-core kernel's launch count
+FFMA = "flash_attention_ffma"   # the FP32 FFMA kernel's launch count
 NEG_INF = -2.0 ** 30
-D_MAX = 128          # the kernel zero-pads head_dim to 128 in shared memory
+D_MAX = 128          # the kernels zero-pad head_dim to 128 in shared memory
 KV_CHUNK = 128       # the plain version's key chunk (the TPU kernel's default)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,20 +90,38 @@ def _launch(q, k, v, causal, window, scale) -> torch.Tensor:
     if d > D_MAX or dv > D_MAX:
         raise ValueError(f"{NAME} takes head_dim <= {D_MAX}, got {d}, {dv}")
     out = torch.empty(b, sq, h, dv, dtype=q.dtype, device=q.device)
-    fn = _build.function(NAME, "flash_attention_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    which = variant(q, k, v)
+    geometry = [b, sq, skv, h, kvh, d, dv, int(causal),
+                int(window is not None),
+                int(window) if window is not None else 0, scale]
+    if which == TC:
+        fn = _build.function(NAME, "flash_attention_tc_launch",
+                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                             + [ctypes.c_float, ctypes.c_void_p])
+        args = geometry
+    else:
+        fn = _build.function(NAME, "flash_attention_launch",
+                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                             + [ctypes.c_float, ctypes.c_void_p])
+        args = [_DTYPES[q.dtype]] + geometry
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    _DTYPES[q.dtype], b, sq, skv, h, kvh, d, dv, int(causal),
-                    int(window is not None),
-                    int(window) if window is not None else 0, scale,
-                    torch.cuda.current_stream().cuda_stream)
+                    *args, torch.cuda.current_stream().cuda_stream)
     _build.check(status, NAME)
     _build.count_launch(NAME)
+    _build.count_launch(which)
     return out
+
+
+def variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call launches: ``TC`` for bfloat16 with head dims
+    that are multiples of 8 and 16-byte aligned bases, ``FFMA`` for
+    everything else (float32 included)."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+            and v.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return TC
+    return FFMA
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

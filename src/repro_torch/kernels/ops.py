@@ -2,8 +2,9 @@
 
 Port of ``repro/kernels/ops.py``.  The reference splits complex64 into
 float32 planes here and merges them back, two extra passes; the Hopper
-kernels read and write complex64 as it is, so this layer only flattens
-the batch dimensions.
+kernels read and write complex64 as it is, so this layer only moves the
+tensor to its device (and, for the broadcast scale, flattens the batch
+dimensions).
 """
 
 from __future__ import annotations
@@ -19,10 +20,7 @@ def fft_matmul_1d(x: torch.Tensor, sign: int = -1,
     """Batched 1-D FFT along the last axis of a complex64 tensor (any
     rank), on ``device`` (the CUDA card unless the caller passes
     ``device="cpu"``)."""
-    x = x.to(resolve_device(device))
-    shape = x.shape
-    rows = x.reshape(-1, shape[-1]).contiguous()
-    return fft_matmul.fft4step(rows, sign).reshape(shape)
+    return fft_matmul.fft4step_axis(x.to(resolve_device(device)), -1, sign)
 
 
 def spectral_scale_op(x: torch.Tensor, h: torch.Tensor, alpha: float = 1.0,

@@ -48,6 +48,54 @@ def test_fft4step_kernel_matches_plain(cuda_device, n, sign):
     assert (got - want).abs().max().item() <= atol
 
 
+def _axis_shape(ndim, axis, n, inner, outer=3):
+    """A shape of ``ndim`` dims with ``n`` at ``axis``, ``outer`` points
+    before it and ``inner`` after it."""
+    after = ndim - 1 - axis
+    factors = {1: [], 2: [2], 8: [2, 4], 24: [4, 6]}[inner]
+    tail = [inner] if after == 1 else [1] * (after - len(factors)) + factors
+    head = [outer] + [1] * (axis - 1) if axis else []
+    return tuple(head + [n] + tail)
+
+
+AXIS_CASES = [(ndim, axis, inner) for ndim in (3, 4) for axis in range(ndim)
+              for inner in (1, 2, 8, 24) if axis < ndim - 1 or inner == 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim,axis,inner", AXIS_CASES)
+@pytest.mark.parametrize("n", [16, 64, 1024, 4096])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_fft4step_axis_matches_plain(cuda_device, ndim, axis, inner, n,
+                                     sign):
+    """Every axis of 3-D and 4-D inputs, transformed where it lies; inner
+    24 is no multiple of the kernel's 8-column tile."""
+    shape = _axis_shape(ndim, axis, n, inner)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + inner)
+    x = torch.randn(*shape, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    got = _launched(fft_matmul.NAME,
+                    lambda: fft_matmul.fft4step_axis(x, axis, sign))
+    assert got.shape == x.shape and got.is_contiguous()
+    want = fft_matmul.fft4step_axis_plain(x, axis, sign)
+    assert (got - want).abs().max().item() <= \
+        KERNEL_TOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_fft4step_axis_takes_a_non_contiguous_input(cuda_device, axis):
+    gen = torch.Generator(device=cuda_device).manual_seed(axis)
+    x = torch.randn(64, 32, 128, dtype=torch.complex64, device=cuda_device,
+                    generator=gen).transpose(0, 2)      # (128, 32, 64) view
+    assert not x.is_contiguous()
+    got = _launched(fft_matmul.NAME,
+                    lambda: fft_matmul.fft4step_axis(x, axis, -1))
+    want = torch.fft.fft(x, dim=axis)
+    assert (got - want).abs().max().item() <= \
+        KERNEL_TOL * want.abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,axis,p", [((16, 8, 8), 0, 2), ((8, 16, 8), 1, 2),
                                           ((4, 24, 5), 1, 8), ((3, 7, 6), 2, 3)])
@@ -224,6 +272,54 @@ def test_flash_attention_kernel_ragged(cuda_device, sq, skv, causal, window):
                                                  window=window)
     assert torch.isfinite(got).all()
     assert _attention_close(got, want)
+
+
+def _launched_variant(variant, fn):
+    before = launch_counts().get(variant, 0)
+    out = _launched(flash_attention.NAME, fn)
+    assert launch_counts()[variant] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 120, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None), (False, 40)])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("sq,skv", [(333, 333), (77, 200), (300, 100)])
+def test_flash_attention_tensor_cores_match_plain(cuda_device, d, causal,
+                                                  window, g, sq, skv):
+    """The bf16 tensor-core kernel, element by element; (300, 100) with a
+    window leaves rows with no valid key."""
+    q, k, v = _attention_case(cuda_device, 2, sq, skv, 2 * g, 2, d,
+                              torch.bfloat16, seed=d + g + sq)
+    got = _launched_variant(flash_attention.TC, lambda: flash_attention.
+                            flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+    assert torch.isfinite(got).all()
+    assert _attention_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_takes_the_variant_of_its_dtype_and_shape(
+        cuda_device):
+    cases = [(torch.bfloat16, 120, 0, flash_attention.TC),
+             (torch.float32, 120, 0, flash_attention.FFMA),
+             (torch.bfloat16, 36, 0, flash_attention.FFMA),   # 72-byte rows
+             (torch.bfloat16, 64, 1, flash_attention.FFMA)]   # unaligned q
+    for dtype, d, offset, which in cases:
+        q, k, v = _attention_case(cuda_device, 1, 150, 150, 4, 2, d, dtype,
+                                  seed=d)
+        if offset:
+            q = torch.cat([q.new_zeros(offset), q.reshape(-1)])[offset:] \
+                .view(q.shape)
+        assert flash_attention.variant(q, k, v) == which
+        got = _launched_variant(which, lambda: flash_attention.
+                                flash_attention(q, k, v, window=64))
+        assert _attention_close(got, flash_attention.flash_attention_plain(
+            q, k, v, window=64))
 
 
 @pytest.mark.cuda

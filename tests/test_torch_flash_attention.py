@@ -144,3 +144,83 @@ def test_shape_checks():
         flash_attention(q, k[:, :0], v[:, :0])
     with pytest.raises(ValueError, match="expected q"):
         flash_attention(q[0], k, v)
+
+
+def _attention_p_rounded(q, k, v, p_terms, *, causal=True, window=None,
+                         kv_chunk=64):
+    """The plain version's online softmax with p replaced before the P·V
+    product by ``p_terms(p)``, a list of bf16 terms whose products with v
+    are summed in float32 (the tensor-core kernel's choice of operands)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    qf, kf, vf = q.float() * d ** -0.5, k.float(), v.float()
+    q_pos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq), NEG_INF)
+    l = torch.zeros(b, h, sq)
+    acc = torch.zeros(b, h, sq, d)
+    for c0 in range(0, skv, kv_chunk):
+        kc, vc = kf[:, c0:c0 + kv_chunk], vf[:, c0:c0 + kv_chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc)
+        k_pos = torch.arange(c0, c0 + kc.shape[1])[None, :]
+        mask = torch.ones(sq, kc.shape[1], dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= q_pos - k_pos < window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        pv = sum(torch.einsum("bhqk,bkhd->bhqd", t.float(), vc)
+                 for t in p_terms(p))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _split(p):
+    hi = p.to(torch.bfloat16)
+    return [hi, (p - hi.float()).to(torch.bfloat16)]
+
+
+@pytest.mark.parametrize("p_terms,holds", [
+    (_split, True),                                  # the kernel's design
+    (lambda p: [p.to(torch.bfloat16)], False),       # one rounding of p
+])
+def test_bf16_p_split_holds_the_per_element_bound(p_terms, holds):
+    """Why the tensor-core kernel splits p into bf16 hi and lo terms: at
+    the reference's bf16 case, against the Pallas kernel in interpret
+    mode, the split holds every element within 2**-6 of its value plus
+    5e-5; a single bf16 rounding of p does not."""
+    q, k, v = _qkv(1, 128, 128, 2, 2, 64, seed=1)
+    want = ref_flash(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                     jnp.asarray(v, jnp.bfloat16), q_block=128, kv_chunk=64)
+    want = np.asarray(want, np.float32)
+    got = _attention_p_rounded(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                               _t(v, torch.bfloat16), p_terms)
+    share = (np.abs(got.float().numpy() - want)
+             / (ATTN_BF16_REL * np.abs(want) + ATTN_TOL)).max()
+    assert (share <= 1.0) == holds, share
+
+
+def test_variant_rule():
+    """Which CUDA kernel a call takes is a rule of dtype, head dims and
+    alignment (the rule reads only shapes and pointers, so CPU tensors
+    show it): bf16 with head dims that are multiples of 8 and 16-byte
+    aligned bases goes to the tensor cores, everything else to FFMA."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def qkv(d, dtype, dv=None, offset=0):
+        buf = torch.zeros(offset + 2 * 8 * 4 * d, dtype=dtype)
+        q = buf[offset:].view(2, 8, 4, d)
+        k = torch.zeros(2, 8, 2, d, dtype=dtype)
+        return q, k, torch.zeros(2, 8, 2, dv or d, dtype=dtype)
+
+    assert fa.variant(*qkv(120, torch.bfloat16)) == fa.TC
+    assert fa.variant(*qkv(64, torch.bfloat16, dv=128)) == fa.TC
+    assert fa.variant(*qkv(120, torch.float32)) == fa.FFMA
+    assert fa.variant(*qkv(36, torch.bfloat16)) == fa.FFMA
+    assert fa.variant(*qkv(64, torch.bfloat16, dv=60)) == fa.FFMA
+    assert fa.variant(*qkv(64, torch.bfloat16, offset=1)) == fa.FFMA
