@@ -10,13 +10,20 @@ into ``build/``, then runs:
    card (``fft4step`` at N in {16, 64, 256, 1024, 4096} x sign +-1 within
    3e-4 * max|ref|, then ``fft4step_axis`` on axes -1, -2 and -3 of the
    1024^3 volume, each timed beside ``torch.fft.fft(x, dim=axis)`` and its
-   bytes bound; ``rotate_blocks`` at the ring shapes of phase 3,
-   bitwise; the Hermitian unpack/extend at the 1024^3 packed spectrum
-   and n in {16, 64, 256} within 1e-6 * max|ref|; the spectral scale,
-   full-shape at the 1024^3 r2c spectrum and broadcast at (2^20, 1024)
-   with alpha in {1, 0.25}, within 1e-5 * max|ref|), each timed with
+   bytes bound; ``rotate_blocks`` at the five ring shapes of phase 3,
+   every pack and unpack bitwise, the rotation and the pack timed beside
+   ``torch.roll``; then at croft-1024's 2 GiB rank blocks, every pack and
+   unpack of the pencil 2x2 and slab 4 ring stages, bitwise and timed
+   beside ``torch.roll``; the Hermitian unpack/extend at the 1024^3
+   packed spectrum and n in {16, 64, 256} within 1e-6 * max|ref|; the
+   spectral scale, full-shape at the 1024^3 r2c spectrum and broadcast
+   at (2^20, 1024) with alpha in {1, 0.25}, bitwise), each timed with
    CUDA events beside its plain version, one library call computing the
-   same function where there is one, and its bound;
+   same function where there is one, and its bound.  A kernel whose
+   bound is under 1 ms is timed by one event pair around a run of
+   back-to-back launches (``time_batched_ms``), taking three copies of a
+   32 MiB input in turn so none is found in the L2; 1h prints every
+   wrapper's host microseconds per launch;
 1c. the flash-attention kernel against its plain version: the
    reference test's four configurations and its bf16 case
    (``tests/test_kernels_fft.py:84-115``), ragged lengths (Sq = Skv =
@@ -44,7 +51,9 @@ into ``build/``, then runs:
 3. the distributed executor: 4 ranks on the one card, joined by a gloo
    process group, pencil 2x2 and slab 4 at 256^3, every transpose impl x
    K in {1, 2} x overlap mode x output layout, each rank's block checked
-   against its slice of ``torch.fft.fftn``, the impls bitwise equal;
+   against its slice of ``torch.fft.fftn``, the impls bitwise equal; then
+   one profiled pencil ring forward per K (outside the count): rank 0's
+   ``rotate_blocks`` device time and any copy before the pack;
 3b. the same ranks on a 256^3 real field: packed r2c forward, inverse
    and ``forward_filtered`` (filter after and folded before the plane
    unfold), pencil and slab x transpose impl x K, each rank's block
@@ -134,6 +143,50 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def time_batched_ms(fns, launches: int = 100, reps: int = 5,
+                    warmup: int = 3) -> float:
+    """Device time of one call of a short kernel: the median over ``reps``
+    of one CUDA-event pair around ``launches`` back-to-back calls, over
+    ``launches``.  A sleep kernel ahead of the start event holds the card
+    while the host enqueues the calls, so the host's own time per call
+    never shows as device time.  ``fns`` is one call, or a list of the
+    same call on different inputs, taken in turn: inputs that fit in the
+    H100's 50 MB L2 come as several copies whose total is well past it, so
+    each call finds its input cold, as a ring stage finds the block it
+    just received."""
+    import torch
+    calls = fns if isinstance(fns, (list, tuple)) else [fns]
+    for k in range(max(warmup, len(calls))):
+        calls[k % len(calls)]()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)       # ~10 ms at the H100's clock
+        start.record()
+        for k in range(launches):
+            calls[k % len(calls)]()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call: ``time.perf_counter`` around ``calls``
+    calls with no synchronize in between (the card runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def bound_ms(nbytes: float, flops: float,
              flop_s: float = FP32_FLOP_S) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
@@ -190,7 +243,7 @@ def phase_fft_axes(x) -> dict:
 
 def phase_kernels(dev) -> dict:
     import torch
-    from repro_torch.kernels import fft_matmul, transpose_pack
+    from repro_torch.kernels import fft_matmul
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
 
@@ -224,23 +277,36 @@ def phase_kernels(dev) -> dict:
                                    bound_ms=b_ms, bound_by=b_by,
                                    shape=[rows, n])
         if n == DIST:
-            # phase 3's shape: one rank's 256^3/4 block, one axis
-            xs = x[:DIST * DIST // 4]
-            b_ms, b_by = bound_ms(2 * xs.numel() * 8 + 3 * n * 8,
-                                  5.0 * n * math.log2(n) * xs.shape[0])
-            print(f"[1] fft4step at {tuple(xs.shape)}: ms="
-                  f"{time_ms(lambda: fft_matmul.fft4step(xs, -1), reps=50)} "
+            # phase 3's shape: one rank's 256^3/4 block (32 MiB), one axis;
+            # three disjoint blocks timed in turn, 96 MiB past the L2
+            m = DIST * DIST // 4
+            xs = [x[i * m:(i + 1) * m] for i in range(3)]
+            b_ms, b_by = bound_ms(2 * xs[0].numel() * 8 + 3 * n * 8,
+                                  5.0 * n * math.log2(n) * m)
+            k_ms = time_batched_ms([lambda a=a: fft_matmul.fft4step(a, -1)
+                                    for a in xs])
+            l_ms = time_batched_ms([lambda a=a: torch.fft.fft(a) for a in xs])
+            print(f"[1] fft4step at {tuple(xs[0].shape)}: ms={k_ms} "
                   f"plain_ms="
-                  f"{time_ms(lambda: fft_matmul.fft4step_plain(xs, -1))} "
-                  f"library_ms={time_ms(lambda: torch.fft.fft(xs), reps=50)} "
-                  f"bound_ms={b_ms} bound_by={b_by}", flush=True)
+                  f"{time_ms(lambda: fft_matmul.fft4step_plain(xs[0], -1))} "
+                  f"library_ms={l_ms} bound_ms={b_ms} bound_by={b_by}",
+                  flush=True)
         del x
         torch.cuda.empty_cache()
     out["fft4step"]["max_abs_err"] = worst
     out["fft4step"]["axes"] = axes
     print(f"[1] fft4step at ({1 << 20}, {FULL}): {out['fft4step']}", flush=True)
+    return out
 
-    # rotate_blocks at the ring shapes of phase 3 (one rank's 256^3/4 block)
+
+def phase_rotate_shapes(dev) -> dict:
+    """``rotate_blocks`` at the ring shapes of phase 3 (one rank's 256^3/4
+    block): every pack and unpack bitwise against the plain version, then
+    the natural rotation and the pack timed beside ``torch.roll``."""
+    import torch
+    from repro_torch.kernels import transpose_pack
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
     d, q = DIST, DIST // 2
     cases = [((d, q, q), 0, 2), ((q, d, q), 1, 2), ((q, q, d), 2, 2),
              ((d, d, d // 4), 0, 4), ((d // 4, d, d), 2, 4)]
@@ -262,19 +328,139 @@ def phase_kernels(dev) -> dict:
                 src_piece_major=True)
             check(torch.equal(back.reshape(-1), plain) and torch.equal(back, x),
                   f"unpack {shape} axis={axis} idx={idx}")
-        print(f"[1] rotate_blocks {shape} axis={axis} P={p}: bitwise equal",
-              flush=True)
-    x = torch.randn(q, d, q, dtype=torch.complex64, device=dev, generator=gen)
-    rot = lambda: transpose_pack.rotate_blocks(x, 1, 1, 2)
-    plain = lambda: transpose_pack.rotate_block_rows_plain(x, q, 2, q * q, 1)
-    check(torch.equal(rot(), torch.roll(x, -q, dims=1)), "rotate vs roll")
-    b_ms, b_by = bound_ms(2 * x.numel() * 8, 0.0)
-    out["rotate_blocks"] = dict(
-        ms=time_ms(rot, reps=50), plain_ms=time_ms(plain, reps=50),
-        library_ms=time_ms(lambda: torch.roll(x, -q, dims=1), reps=50),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0, shape=[q, d, q])
-    print(f"[1] rotate_blocks at ({q}, {d}, {q}) axis 1: "
-          f"{out['rotate_blocks']}", flush=True)
+        block = shape[axis] // p
+        check(torch.equal(transpose_pack.rotate_blocks(x, axis, 1, p),
+                          torch.roll(x, -block, dims=axis)),
+              f"rotate vs roll {shape}")
+        outer = math.prod(shape[:axis])
+        unit = x.numel() // (outer * p)
+        b_ms, b_by = bound_ms(2 * x.numel() * 8, 0.0)
+        # three copies of the 32 MiB block, timed in turn (past the L2)
+        xs = [x, x.clone(), x.clone()]
+        row = dict(
+            ms=time_batched_ms([
+                lambda a=a: transpose_pack.rotate_blocks(a, axis, 1, p)
+                for a in xs]),
+            pack_ms=time_batched_ms([
+                lambda a=a: transpose_pack.pack_pieces(a, axis, 1, p)
+                for a in xs]),
+            library_ms=time_batched_ms([
+                lambda a=a: torch.roll(a, -block, dims=axis) for a in xs]),
+            bound_ms=b_ms, bound_by=b_by,
+            vec_bytes=transpose_pack.rotate_path(unit, x.data_ptr(), 0),
+            run_bytes=unit * 8, max_abs_err=0.0, shape=list(shape))
+        if shape == (q, d, q):      # the kernels line's shape
+            row["plain_ms"] = time_batched_ms([
+                lambda a=a: transpose_pack.rotate_block_rows_plain(
+                    a, q, 2, q * q, 1) for a in xs], launches=20)
+            out["rotate_blocks"] = row
+        print(f"[1] rotate_blocks {shape} axis={axis} P={p}: bitwise equal; "
+              f"{row}", flush=True)
+        del x, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_rotations(shape) -> list:
+    """The pack and unpack rotations of every ring stage that ``build_c2c``
+    gives pencil 2x2 and slab 4 at ``shape`` (natural output, K = 1), as
+    (mesh kind, stage, pack or unpack, outer, P, unit)."""
+    from repro_torch.core import Decomposition
+    from repro_torch.core.schedule import build_c2c
+    out = []
+    for sizes, names, kind in MESHES:
+        sched = build_c2c(Decomposition(kind, names), output_layout="natural")
+        axis_sizes = dict(zip(names, sizes))
+        for st, pts in zip(sched.stages, sched.points):
+            if st.comm_axis is None:
+                continue
+            blk = pts.comm.local_shape(shape, axis_sizes)
+            p = axis_sizes[st.comm_axis]
+            piece = list(blk)
+            piece[st.split_axis] //= p
+            a, c = st.split_axis, st.concat_axis
+            out.append((kind, st.name, "pack", math.prod(blk[:a]), p,
+                        blk[a] // p * math.prod(blk[a + 1:])))
+            out.append((kind, st.name, "unpack", math.prod(piece[:c]), p,
+                        piece[c] * math.prod(piece[c + 1:])))
+    return out
+
+
+def phase_rotate_rank_blocks(dev) -> dict:
+    """``rotate_blocks`` at croft-1024's rank blocks (1024^3 over 4 ranks,
+    2 GiB each): every distinct pack and unpack of the ring stages of
+    pencil 2x2 and slab 4, as the stage runs it (piece-major on one side)
+    and natural on both sides, beside ``torch.roll`` of the same (outer,
+    P, unit) view; bitwise against the plain version."""
+    import torch
+    from repro_torch.kernels import transpose_pack
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    numel = FULL ** 3 // RANKS
+    x = torch.randn(numel, dtype=torch.complex64, device=dev, generator=gen)
+    b_ms, b_by = bound_ms(2 * numel * 8, 0.0)
+    rows, seen = [], set()
+    for kind, stage, side, outer, p, unit in ring_rotations((FULL,) * 3):
+        key = (side, outer, p, unit)
+        if key in seen:
+            continue
+        seen.add(key)
+        spm, dpm = side == "unpack", side == "pack"
+        got = transpose_pack.rotate_block_rows(x, outer, p, unit, 1, spm, dpm)
+        want = transpose_pack.rotate_block_rows_plain(x, outer, p, unit, 1,
+                                                      spm, dpm)
+        check(torch.equal(got, want), f"rotate_blocks 2 GiB {key}")
+        del got, want
+        v = x.view(outer, p, unit)
+        row = dict(
+            mesh=kind, stage=stage, side=side, outer=outer, p=p, unit=unit,
+            vec_bytes=transpose_pack.rotate_path(unit, x.data_ptr(), 0),
+            ms=time_batched_ms(lambda: transpose_pack.rotate_block_rows(
+                x, outer, p, unit, 1, spm, dpm), launches=10),
+            natural_ms=time_batched_ms(lambda: transpose_pack.rotate_block_rows(
+                x, outer, p, unit, 1), launches=10),
+            library_ms=time_batched_ms(lambda: torch.roll(v, -1, dims=1),
+                                       launches=10),
+            bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(f"[1] rotate_blocks 2 GiB rank block: {row}", flush=True)
+    # what a plain device-to-device copy of the same bytes takes
+    y = torch.empty_like(x)
+    copy_ms = time_batched_ms(lambda: y.copy_(x), launches=10)
+    del x, v, y
+    torch.cuda.empty_cache()
+    worst = max(r["ms"] / r["bound_ms"] for r in rows)
+    print(f"[1] rotate_blocks 2 GiB: {len(rows)} rotations bitwise equal, "
+          f"worst {worst:.3f}x the {b_ms:.3f} ms bound; a plain copy of the "
+          f"block (Tensor.copy_) {copy_ms:.4f} ms", flush=True)
+    return {"rows": rows, "bound_ms": b_ms, "copy_ms": copy_ms}
+
+
+def phase_host_overhead(dev) -> dict:
+    """Host microseconds per launch of every kernel wrapper, at small
+    shapes (the card stays ahead, so only the host path is timed)."""
+    import torch
+    from repro_torch.kernels import (fft_matmul, flash_attention, hermitian,
+                                     spectral_scale as ss, transpose_pack)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    c = lambda *s: torch.randn(*s, dtype=torch.complex64, device=dev,
+                               generator=gen)
+    x, h = c(64, 1024), c(64, 1024)
+    packed = c(8, 8, 1024)
+    half = hermitian.unpack_two_for_one(packed, 1)
+    q = torch.randn(1, 128, 4, 64, device=dev, generator=gen).bfloat16()
+    kv = torch.randn(1, 128, 2, 64, device=dev, generator=gen).bfloat16()
+    calls = {
+        "fft4step": lambda: fft_matmul.fft4step(x, -1),
+        "rotate_blocks": lambda: transpose_pack.rotate_blocks(x, 1, 1, 2),
+        "unpack_two_for_one": lambda: hermitian.unpack_two_for_one(packed, 1),
+        "hermitian_extend": lambda: hermitian.hermitian_extend(half, 1, 1024),
+        "spectral_scale": lambda: ss.spectral_scale_planes(x, h[0]),
+        "spectral_scale_full": lambda: ss.spectral_scale_planes_full(x, h),
+        "flash_attention": lambda: flash_attention.flash_attention(q, kv, kv),
+    }
+    out = {name: host_us(fn) for name, fn in calls.items()}
+    print(f"[1h] host us per launch (1000 calls, no synchronize, small "
+          f"shapes): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -365,6 +551,15 @@ def _err_and_scale(got, want) -> tuple[float, float]:
     return max_abs_diff(got, want), max_abs(want)
 
 
+def offset_copy(x):
+    """A copy of ``x`` one element into a buffer one element longer: its
+    base is 8 bytes past a 16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x.reshape(-1))
+    return buf[1:].view(x.shape)
+
+
 def phase_real_kernels(dev) -> dict:
     import torch
     from repro_torch.kernels import hermitian, spectral_scale as ss
@@ -420,19 +615,30 @@ def phase_real_kernels(dev) -> dict:
     h = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
     x2, h2 = x.view(-1, shape[-1]), h.view(-1, shape[-1])
     y = ss.spectral_scale_planes_full(x2, h2)
-    err, top = _err_and_scale(y, ss.spectral_scale_plain(x2, h2))
+    want = ss.spectral_scale_plain(x2, h2)
+    err, top = _err_and_scale(y, want)
     print(f"[1] spectral_scale_full {shape}: max_abs_err={err:.3e} "
-          f"tol={SCALE_TOL * top:.3e}", flush=True)
+          f"tol={SCALE_TOL * top:.3e}, bitwise {torch.equal(y, want)}",
+          flush=True)
     check(err <= SCALE_TOL * top, "spectral_scale_full")
-    del y
+    check(torch.equal(y, want), "spectral_scale_full is not bitwise plain")
+    del y, want
     b_ms, b_by = bound_ms(3 * x.numel() * 8, 8.0 * x.numel())
     out[ss.FULL] = dict(
         ms=time_ms(lambda: ss.spectral_scale_planes_full(x2, h2)),
         plain_ms=time_ms(lambda: ss.spectral_scale_plain(x2, h2)),
         library_ms=time_ms(lambda: torch.mul(x, h)), bound_ms=b_ms,
         bound_by=b_by, shape=list(shape), max_abs_err=err)
+    # the same values one element into their buffers (8-byte aligned
+    # bases: a scalar head, and vectors that straddle 32-byte sectors)
+    xo, ho = offset_copy(x2), offset_copy(h2)
+    check(torch.equal(ss.spectral_scale_planes_full(xo, ho),
+                      ss.spectral_scale_plain(x2, h2)),
+          "spectral_scale_full on offset bases is not bitwise plain")
+    out[ss.FULL]["offset_ms"] = time_ms(
+        lambda: ss.spectral_scale_planes_full(xo, ho))
     print(f"[1] {ss.FULL} at {shape}: {out[ss.FULL]}", flush=True)
-    del x, h, x2, h2
+    del x, h, x2, h2, xo, ho
     torch.cuda.empty_cache()
 
     # the broadcast spectral scale through spectral_scale_op, (2^20, 1024)
@@ -443,18 +649,29 @@ def phase_real_kernels(dev) -> dict:
     worst = 0.0
     for alpha in (1.0, 0.25):
         y = spectral_scale_op(x, h, alpha, device=dev)
-        err, top = _err_and_scale(y, ss.spectral_scale_plain(x, h, alpha))
+        want = ss.spectral_scale_plain(x, h, alpha)
+        err, top = _err_and_scale(y, want)
         print(f"[1] spectral_scale ({rows}, {FULL}) alpha={alpha}: "
-              f"max_abs_err={err:.3e} tol={SCALE_TOL * top:.3e}", flush=True)
+              f"max_abs_err={err:.3e} tol={SCALE_TOL * top:.3e}, bitwise "
+              f"{torch.equal(y, want)}", flush=True)
         check(err <= SCALE_TOL * top, f"spectral_scale alpha={alpha}")
+        check(torch.equal(y, want),
+              f"spectral_scale alpha={alpha} is not bitwise plain")
         worst = max(worst, err)
-        del y
+        del y, want
     b_ms, b_by = bound_ms(2 * x.numel() * 8 + FULL * 8, 8.0 * x.numel())
     out[ss.BROADCAST] = dict(
         ms=time_ms(lambda: spectral_scale_op(x, h, 0.25, device=dev)),
         plain_ms=time_ms(lambda: ss.spectral_scale_plain(x, h, 0.25)),
         library_ms=time_ms(lambda: torch.mul(x, h)), bound_ms=b_ms,
         bound_by=b_by, shape=[rows, FULL], max_abs_err=worst)
+    xo = offset_copy(x)
+    check(torch.equal(ss.spectral_scale_planes(xo, h, 0.25),
+                      ss.spectral_scale_plain(x, h, 0.25)),
+          "spectral_scale on an offset base is not bitwise plain")
+    out[ss.BROADCAST]["offset_ms"] = time_ms(
+        lambda: ss.spectral_scale_planes(xo, h, 0.25))
+    del xo
     print(f"[1] {ss.BROADCAST} at ({rows}, {FULL}): {out[ss.BROADCAST]}",
           flush=True)
     del x, h
@@ -567,11 +784,13 @@ def phase_attention_kernel(dev) -> dict:
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     b_ms, b_by = bound_ms(nbytes, 4.0 * d * pairs, BF16_FLOP_S)
     before = launch_counts()
-    tc_ms = time_ms(run, reps=10)
+    tc_ms = time_batched_ms(run, launches=20)
     tc_launches = launch_counts().get(fa.TC, 0) - before.get(fa.TC, 0)
     out = {"flash_attention": dict(
-        ms=tc_ms, plain_ms=time_ms(plain, reps=3, warmup=1),
-        library_ms=time_ms(lib, reps=10), bound_ms=b_ms, bound_by=b_by,
+        ms=tc_ms, single_call_ms=time_ms(run, reps=10),
+        plain_ms=time_ms(plain, reps=3, warmup=1),
+        library_ms=time_batched_ms(lib, launches=20), bound_ms=b_ms,
+        bound_by=b_by,
         max_abs_err=max(worst["float32"], worst["bfloat16"], err),
         shape=[b, s, h, kv, d], pairs=pairs, library_max_abs_err=lib_err)}
     print(f"[1c] flash_attention at ({b}, {s}, {h}, {d}) kv={kv}: "
@@ -718,6 +937,7 @@ def worker(rank: int, port: int) -> None:
     meshes = [(make_mesh(sizes, names, device=dev), kind, names)
               for sizes, names, kind in MESHES]
     res = worker_c2c(rank, dev, meshes)
+    res["pack_profile"] = profile_pack(rank, dev, meshes)
     print("RESULT " + json.dumps(res), flush=True)
     res = worker_r2c(rank, dev, meshes)
     print("RESULT_R2C " + json.dumps(res), flush=True)
@@ -787,6 +1007,63 @@ def worker_r2c(rank: int, dev, meshes) -> dict:
         res["host_staged_bytes"] += mesh.host_staged_bytes
     res["launches"] = launch_counts()
     return res
+
+
+def profile_pack(rank: int, dev, meshes) -> dict:
+    """One profiled c2c forward per K in {1, 2} on the pencil mesh with the
+    ring transpose (outside the counted run): on rank 0, the device time
+    and launches of ``rotate_blocks``, the device copy launches, and how
+    many packs were handed a non-contiguous block (which
+    ``schedule._pack_pieces`` copies with ``.contiguous()`` first)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Croft3D, Decomposition, FFTOptions, schedule
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (DIST,) * 3
+    x = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    mesh, kind, names = meshes[0]
+    packs = []
+    pack_pieces = schedule._pack_pieces
+
+    def spy(blk, *args):
+        packs.append((blk.is_contiguous(), blk.numel() * blk.element_size()))
+        return pack_pieces(blk, *args)
+
+    out = {}
+    schedule._pack_pieces = spy
+    try:
+        for k in (1, 2):
+            plan = Croft3D(shape, mesh, Decomposition(kind, names),
+                           FFTOptions(overlap_k=k, transpose_impl="ring",
+                                      local_impl="pallas"))
+            xl = x[plan.input_sharding].contiguous()
+            plan.forward(xl)
+            torch.cuda.synchronize()
+            packs.clear()
+            ctx = (profile(activities=[ProfilerActivity.CUDA]) if rank == 0
+                   else contextlib.nullcontext())
+            with ctx as prof:
+                plan.forward(xl)
+                torch.cuda.synchronize()
+            if rank != 0:
+                continue
+            rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+            rot = [e for e in rows if "rotate" in e.key]
+            copies = [e for e in rows if is_copy(e.key)]
+            out[f"k{k}"] = dict(
+                busy_ms=sum(e.device_time_total for e in rows) / 1e3,
+                rotate_ms=sum(e.device_time_total for e in rot) / 1e3,
+                rotate_launches=sum(e.count for e in rot),
+                rotate_kernels=sorted({e.key[:40] for e in rot}),
+                copy_launches=sum(e.count for e in copies),
+                copy_ms=sum(e.device_time_total for e in copies) / 1e3,
+                packs=len(packs),
+                packs_copied_first=sum(not c for c, _ in packs),
+                bytes_copied_first=sum(b for c, b in packs if not c))
+    finally:
+        schedule._pack_pieces = pack_pieces
+    return out
 
 
 def worker_c2c(rank: int, dev, meshes) -> dict:
@@ -900,6 +1177,8 @@ def phase_distributed() -> tuple[dict, dict]:
         results.append(json.loads(lines[-1][len("RESULT "):]))
         results_r2c.append(json.loads(lines_r2c[-1][len("RESULT_R2C "):]))
     counts = _summarize(results, "3")
+    print(f"[3] profiled pencil ring forward, rank 0: "
+          f"{json.dumps(results[0]['pack_profile'])}", flush=True)
     check(counts.get("fft4step", 0) > 0, "fft4step not launched in phase 3")
     check(counts.get("rotate_blocks", 0) > 0,
           "rotate_blocks not launched in phase 3")
@@ -1067,8 +1346,11 @@ def main() -> int:
     print(f"[0] build {time.time() - t0:.1f} s", flush=True)
 
     timings = phase_kernels(dev)
+    timings.update(phase_rotate_shapes(dev))
+    phase_rotate_rank_blocks(dev)
     timings.update(phase_real_kernels(dev))
     timings.update(phase_attention_kernel(dev))
+    phase_host_overhead(dev)
     paths = [phase_full(dev), phase_real_full(dev), *phase_distributed(),
              phase_serve(dev)]
 

@@ -8,6 +8,11 @@ source, so an edited kernel is rebuilt and a stale library is never
 loaded.  :func:`build_all` compiles every source at once, one ``nvcc``
 process each, all started together.
 
+The launch path is short: :func:`function` types each C launcher once
+per process and caches it, and :func:`call` passes PyTorch's current
+stream and switches the current device only when the tensor lies on
+another.
+
 The launch counters live here too: every kernel wrapper calls
 :func:`count_launch` exactly where it launches its kernel, so a run can
 show that its main path went through the kernels.
@@ -23,11 +28,14 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
 _launches: dict[str, int] = {}
 
@@ -115,11 +123,31 @@ def load(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, argtypes: list):
     """The C launcher ``symbol`` of ``csrc/<name>.cu``, typed: pointers
     and the stream must be ``c_void_p`` or ctypes cuts them to 32 bits;
-    every launcher returns ``cudaGetLastError()`` as an int."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    every launcher returns ``cudaGetLastError()`` as an int.  Typed on the
+    first call and cached; later calls take no lock."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
     return fn
+
+
+def _raw_stream(index: int) -> int:
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def call(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on PyTorch's current stream of ``device``;
+    the current device is switched only when ``device`` is another."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, _raw_stream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, _raw_stream(device.index))
 
 
 def check(status: int, name: str) -> None:

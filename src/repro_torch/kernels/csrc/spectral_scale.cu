@@ -5,15 +5,32 @@
 // which share one body (_scale_kernel):
 //   spectral_scale_planes      h of shape (N,), broadcast over the rows
 //   spectral_scale_planes_full h of the shape of x
-// One kernel serves both: x is viewed as (rows, n) and h has a row stride
-// of 0 (broadcast) or n (full shape).
+// One kernel template serves both: x is viewed as (rows, n) and h has a
+// row stride of 0 (broadcast) or n (full shape).
 //
 // Bound on an H100: bytes.  x is read once, y written once and h read
-// once (full) or kept in L1/L2 (broadcast): 12.9 GB for the r2c spectrum
-// of the 1024^3 grid, 3.85 ms at 3.35 TB/s, against ~8 flop per element.
-// The kernel is one grid-stride pass over float2 elements, consecutive
-// threads on consecutive elements; the broadcast column index advances by
-// the grid stride modulo n, so the loop does no division.
+// once (full) or from L1/L2 (broadcast, 8 KB at n = 1024): 12.9 GB for
+// the r2c spectrum of the 1024^3 grid, 3.85 ms at 3.35 TB/s, against ~8
+// flop per element.  A streaming kernel reaches that bound only with enough bytes
+// in flight and few instructions per byte, so:
+//   - x, y and a full h move in 16-byte vectors, two complex values each;
+//     every thread issues kUnroll loads of x (and of h) before its first
+//     store;
+//   - each block takes one contiguous span of kThreads x kUnroll vectors,
+//     and the grid covers the array once: blocks retire in address order,
+//     so the card sweeps memory front to back.  On the H100 this beat a
+//     persistent grid-stride loop sized by occupancy, longer spans per
+//     block, a ring of TMA bulk copies through shared memory, and
+//     streaming cache hints (PERF.md);
+//   - a broadcast h is read through L1/L2 (__ldg): staging it in shared
+//     memory once per block measured no faster (PERF.md);
+//   - the two values of a vector take their columns on their own: with
+//     odd n (513, the r2c spectrum) a vector spans a row boundary.  The
+//     columns advance by constant steps mod n, so the loop does no division;
+//   - a base that is only 8-byte aligned starts with one scalar element
+//     (head), and an odd remainder ends with one (tail).  The wrapper
+//     allocates y with x's alignment; a full h of the other alignment is
+//     read as two 8-byte halves.
 //
 // Order of operations: the TPU kernel scales x by alpha before the
 // product, as here.  Every product and sum is rounded on its own
@@ -21,60 +38,123 @@
 // kernels/spectral_scale.py computes it, so the two agree to the bit.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;               // 16-byte vectors in flight a thread
+constexpr long long kSpan = (long long)kThreads * kUnroll;
 
-template <bool kFull>
+// where h comes from
+enum HMode {
+  kBroadcast = 0,         // (n,), read through L1/L2
+  kFullVector = 1,        // (rows, n), 16-byte vectors
+  kFullPairs = 2,         // (rows, n), two 8-byte halves a vector
+};
+
+__device__ __forceinline__ float2 scale1(float2 x, float2 h, float alpha) {
+  const float xr = __fmul_rn(x.x, alpha);
+  const float xi = __fmul_rn(x.y, alpha);
+  return make_float2(__fsub_rn(__fmul_rn(xr, h.x), __fmul_rn(xi, h.y)),
+                     __fadd_rn(__fmul_rn(xr, h.y), __fmul_rn(xi, h.x)));
+}
+
+__device__ __forceinline__ float4 scale2(float4 x, float2 h0, float2 h1,
+                                         float alpha) {
+  const float2 a = scale1(make_float2(x.x, x.y), h0, alpha);
+  const float2 b = scale1(make_float2(x.z, x.w), h1, alpha);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// x, y, h point at element 0; the vectors cover elements [head, head +
+// 2 nvec), the tail element (if any) is head + 2 nvec
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 scale_kernel(const float2* __restrict__ x, const float2* __restrict__ h,
-             float2* __restrict__ y, long long total, long long n,
-             float alpha) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  long long col = kFull ? 0 : t % n;
-  const long long col_step = kFull ? 0 : stride % n;
-  for (; t < total; t += stride) {
-    const float2 xv = x[t];
-    const float2 hv = h[kFull ? t : col];
-    const float xr = __fmul_rn(xv.x, alpha);
-    const float xi = __fmul_rn(xv.y, alpha);
-    y[t] = make_float2(__fsub_rn(__fmul_rn(xr, hv.x), __fmul_rn(xi, hv.y)),
-                       __fadd_rn(__fmul_rn(xr, hv.y), __fmul_rn(xi, hv.x)));
-    if (!kFull) {
-      col += col_step;
-      if (col >= n) col -= n;
+             float2* __restrict__ y, long long head, long long nvec,
+             long long total, long long n, float alpha) {
+  constexpr bool kFull = kMode == kFullVector || kMode == kFullPairs;
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+  const float4* hv = reinterpret_cast<const float4*>(h + head);
+  float4* yv = reinterpret_cast<float4*>(y + head);
+  const long long v0 = (long long)blockIdx.x * kSpan + threadIdx.x;
+  float4 xs[kUnroll], hs[kUnroll];
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const long long v = v0 + k * kThreads;
+    if (v < nvec) {
+      xs[k] = xv[v];
+      if constexpr (kMode == kFullVector) hs[k] = hv[v];
+      if constexpr (kMode == kFullPairs) {
+        const float2 a = h[head + 2 * v];
+        const float2 b = h[head + 2 * v + 1];
+        hs[k] = make_float4(a.x, a.y, b.x, b.y);
+      }
     }
   }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (head) y[0] = scale1(x[0], h[0], alpha);
+    const long long t = head + 2 * nvec;
+    if (t < total) y[t] = scale1(x[t], h[kFull ? t : t % n], alpha);
+  }
+  // broadcast: the column of the thread's first value, and its advance
+  // from one of its vectors to the next (kThreads vectors on)
+  long long c = kFull ? 0 : (head + 2 * v0) % n;
+  const long long c_step = kFull ? 0 : (2LL * kThreads) % n;
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const long long v = v0 + k * kThreads;
+    float2 h0, h1;
+    if constexpr (kFull) {
+      h0 = make_float2(hs[k].x, hs[k].y);
+      h1 = make_float2(hs[k].z, hs[k].w);
+    } else {
+      h0 = __ldg(h + c);
+      h1 = __ldg(h + (c + 1 == n ? 0 : c + 1));
+      c += c_step;
+      if (c >= n) c -= n;
+    }
+    if (v < nvec) yv[v] = scale2(xs[k], h0, h1, alpha);
+  }
+}
+
+template <int kMode>
+int launch(const float2* x, const float2* h, float2* y, long long head,
+           long long total, long long n, float alpha, cudaStream_t stream) {
+  const long long nvec = (total - head) / 2;
+  long long blocks = (nvec + kSpan - 1) / kSpan;
+  if (blocks < 1) blocks = 1;            // block 0 writes head and tail
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  scale_kernel<kMode><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      x, h, y, head, nvec, total, n, alpha);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, y: (rows, n) complex64; h: (n,) when h_row_stride is 0, else
-// (rows, n) with h_row_stride == n.
+// x, y: (rows, n) complex64 with the same alignment mod 16 bytes; h: (n,)
+// when h_row_stride is 0, else (rows, n) with h_row_stride == n.
 extern "C" int spectral_scale_launch(const void* x, const void* h, void* y,
                                      long long rows, long long n,
                                      long long h_row_stride, float alpha,
-                                     int sm_count, void* stream) {
+                                     void* stream) {
   const long long total = rows * n;
   if (total <= 0) return 0;
   if (h_row_stride != 0 && h_row_stride != n)
     return (int)cudaErrorInvalidValue;
-  // enough blocks to fill every SM several times over; each thread then
-  // walks the rest of the array in grid-sized strides
-  long long blocks = (total + kThreads - 1) / kThreads;
-  const long long cap = (long long)(sm_count > 0 ? sm_count : 132) * 16;
-  if (blocks > cap) blocks = cap;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x) % 16;
+  if (reinterpret_cast<uintptr_t>(y) % 16 != xa || xa % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long head = xa ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* xp = static_cast<const float2*>(x);
   const float2* hp = static_cast<const float2*>(h);
   float2* yp = static_cast<float2*>(y);
-  if (h_row_stride == n)
-    scale_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(xp, hp, yp,
-                                                             total, n, alpha);
-  else
-    scale_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        xp, hp, yp, total, n, alpha);
-  return (int)cudaGetLastError();
+  if (h_row_stride == n) {
+    if (reinterpret_cast<uintptr_t>(h) % 16 == xa)
+      return launch<kFullVector>(xp, hp, yp, head, total, n, alpha, s);
+    return launch<kFullPairs>(xp, hp, yp, head, total, n, alpha, s);
+  }
+  return launch<kBroadcast>(xp, hp, yp, head, total, n, alpha, s);
 }

@@ -33,6 +33,10 @@ from repro_torch.device import full_fp32_matmul
 from repro_torch.kernels import _build
 
 NAME = "fft4step"
+# x, y, twiddles, outer, inner, n1, n2, sign, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
 
 
 def _checked_plan(n: int, sign: int) -> plan_lib.FFTPlan:
@@ -77,13 +81,9 @@ def fft4step_axis(x: torch.Tensor, axis: int, sign: int = -1) -> torch.Tensor:
     # n2 == 1 reads no twiddles: any valid pointer will do
     tw = x if plan.tw is None else plan.twiddles_t_torch(x.device)
     y = torch.empty_like(x)
-    fn = _build.function(NAME, "fft4step_launch", [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), y.data_ptr(), tw.data_ptr(), outer, inner,
-                    plan.n1, plan.n2, sign,
-                    torch.cuda.current_stream().cuda_stream)
+    fn = _build.function(NAME, "fft4step_launch", _ARGTYPES)
+    status = _build.call(fn, x.device, x.data_ptr(), y.data_ptr(),
+                         tw.data_ptr(), outer, inner, plan.n1, plan.n2, sign)
     _build.check(status, NAME)
     _build.count_launch(NAME)
     return y

@@ -49,6 +49,11 @@ D_MAX = 128          # the kernels zero-pad head_dim to 128 in shared memory
 KV_CHUNK = 128       # the plain version's key chunk (the TPU kernel's default)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# q, k, v, out, [dtype,] the ten ints of the geometry, scale, stream
+_TC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                + [ctypes.c_float, ctypes.c_void_p])
+_FFMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                  + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check_shapes(q, k, v):
@@ -95,18 +100,13 @@ def _launch(q, k, v, causal, window, scale) -> torch.Tensor:
                 int(window is not None),
                 int(window) if window is not None else 0, scale]
     if which == TC:
-        fn = _build.function(NAME, "flash_attention_tc_launch",
-                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                             + [ctypes.c_float, ctypes.c_void_p])
+        fn = _build.function(NAME, "flash_attention_tc_launch", _TC_ARGTYPES)
         args = geometry
     else:
-        fn = _build.function(NAME, "flash_attention_launch",
-                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-                             + [ctypes.c_float, ctypes.c_void_p])
+        fn = _build.function(NAME, "flash_attention_launch", _FFMA_ARGTYPES)
         args = [_DTYPES[q.dtype]] + geometry
-    with torch.cuda.device(q.device):
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    *args, torch.cuda.current_stream().cuda_stream)
+    status = _build.call(fn, q.device, q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), out.data_ptr(), *args)
     _build.check(status, NAME)
     _build.count_launch(NAME)
     _build.count_launch(which)

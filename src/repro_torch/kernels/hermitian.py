@@ -40,6 +40,9 @@ from repro_torch.kernels import _build
 NAME = "hermitian"
 UNPACK = "unpack_two_for_one"
 EXTEND = "hermitian_extend"
+# src, dst, rows, rows per pair half, n, stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 # elements of the plain versions' temporaries per block (bounds their memory
 # on a full-size spectrum; rows are independent)
@@ -66,12 +69,9 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
 
 def _launch(symbol: str, src: torch.Tensor, dst: torch.Tensor, rows: int,
             rows_per_half: int, n: int, count: str) -> None:
-    fn = _build.function(NAME, symbol, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(src.device):
-        status = fn(src.data_ptr(), dst.data_ptr(), rows, rows_per_half, n,
-                    torch.cuda.current_stream().cuda_stream)
+    fn = _build.function(NAME, symbol, _ARGTYPES)
+    status = _build.call(fn, src.device, src.data_ptr(), dst.data_ptr(),
+                         rows, rows_per_half, n)
     _build.check(status, count)
     _build.count_launch(count)
 

@@ -14,10 +14,11 @@ The names are the reference's; the port takes interleaved complex64, not
 real/imaginary planes, so no split or merge pass surrounds the kernel.
 
 Bound on an H100: bytes — x read once, y written once, h read once
-(full) or cached (broadcast); ~8 flop per element.  The kernel scales x
-by alpha *before* the product, as the TPU kernel does, and rounds every
-product and sum on its own; the plain version repeats that order, so the
-two agree to the bit.
+(full) or from L1/L2 (broadcast); ~8 flop per element.  The kernel
+streams 16-byte vectors, two complex values each, four loads in flight
+per thread, one span per block (``csrc/spectral_scale.cu``).  It scales x by alpha *before* the product,
+as the TPU kernel does, and rounds every product and sum on its own; the
+plain version repeats that order, so the two agree to the bit.
 
 :func:`spectral_scale` is the schedule-epilogue dispatcher with the
 reference's rule: complex64 with ``h.shape == x.shape`` goes to the
@@ -40,6 +41,21 @@ FULL = "spectral_scale_full"
 
 # elements of the plain version's temporaries per block
 _PLAIN_ELEMS = 1 << 24
+# x, h, y, rows, n, h's row stride, alpha, stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_float, ctypes.c_void_p]
+
+
+def _like_aligned(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor like contiguous ``x`` whose base has x's address
+    mod 16 bytes, so the kernel's 16-byte vectors line up on both: a base
+    8 bytes past a 16-byte boundary (x a view one element in) gets a
+    buffer one element longer, viewed from its second element."""
+    if x.data_ptr() % 16 == 0:
+        return torch.empty_like(x)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape)
 
 
 def _launch(x: torch.Tensor, h: torch.Tensor, alpha: float, full: bool,
@@ -53,16 +69,11 @@ def _launch(x: torch.Tensor, h: torch.Tensor, alpha: float, full: bool,
         if not t.is_contiguous():
             raise ValueError(f"{count} takes contiguous tensors ({what})")
     rows, n = x.shape
-    y = torch.empty_like(x)
-    fn = _build.function(NAME, "spectral_scale_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        status = fn(x.data_ptr(), h.data_ptr(), y.data_ptr(), rows, n,
-                    n if full else 0, float(alpha), sms,
-                    torch.cuda.current_stream().cuda_stream)
+    y = _like_aligned(x)
+    fn = _build.function(NAME, "spectral_scale_launch", _ARGTYPES)
+    status = _build.call(fn, x.device, x.data_ptr(), h.data_ptr(),
+                         y.data_ptr(), rows, n, n if full else 0,
+                         float(alpha))
     _build.check(status, count)
     _build.count_launch(count)
     return y

@@ -17,7 +17,8 @@ done in one pass each:
 Bound on an H100: bytes — a pure copy, each byte read once and written
 once.  The kernel views any axis as (outer, P, unit) with no axis move
 and no real/imag plane split (the TPU kernel's two extra passes), and
-copies whole contiguous runs per thread block.
+copies 16-byte vectors where :func:`rotate_path` finds the runs and
+bases aligned, else 8-byte ones (``csrc/rotate_blocks.cu``).
 
 A tensor on the CPU goes to :func:`rotate_block_rows_plain`; a CUDA
 tensor launches the kernel or raises.
@@ -33,6 +34,24 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "rotate_blocks"
+VEC16, VEC8 = 16, 8
+# src, dst, outer, P, unit, shift, src piece-major, dst piece-major, vector
+# bytes, stream
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def rotate_path(unit: int, src_ptr: int, dst_ptr: int) -> int:
+    """The vector width in bytes that copies runs of ``unit`` complex64
+    elements between these base addresses: ``VEC16`` (two elements) when
+    ``unit`` is even and both bases are 16-byte aligned, else ``VEC8``.
+    P and the layouts do not enter: every run of either layout is
+    ``unit`` elements long and starts at a multiple of ``unit`` from its
+    base."""
+    if unit % 2 or src_ptr % 16 or dst_ptr % 16:
+        return VEC8
+    return VEC16
 
 
 def rotate_block_rows(x: torch.Tensor, outer: int, p: int, unit: int,
@@ -55,14 +74,11 @@ def rotate_block_rows(x: torch.Tensor, outer: int, p: int, unit: int,
     if not x.is_contiguous():
         raise ValueError("rotate_blocks takes a contiguous tensor")
     y = torch.empty(x.numel(), dtype=x.dtype, device=x.device)
-    fn = _build.function(NAME, "rotate_blocks_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), y.data_ptr(), outer, p, unit, shift % p,
-                    int(src_piece_major), int(dst_piece_major),
-                    torch.cuda.current_stream().cuda_stream)
+    src, dst = x.data_ptr(), y.data_ptr()
+    fn = _build.function(NAME, "rotate_blocks_launch", _ARGTYPES)
+    status = _build.call(fn, x.device, src, dst, outer, p, unit, shift % p,
+                         int(src_piece_major), int(dst_piece_major),
+                         rotate_path(unit, src, dst))
     _build.check(status, NAME)
     _build.count_launch(NAME)
     return y

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 
@@ -48,8 +49,8 @@ def load_tree(module: nn.Module, tree: dict, what: str, index=None) -> None:
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
     """The reference's ``init_params`` tree (numpy leaves) as a
-    :class:`Model` on ``device`` (default: the CPU)."""
-    model = Model(cfg, device="meta").to_empty(device=device or "cpu")
+    :class:`Model` on ``device`` (default: the current CUDA card)."""
+    model = Model(cfg, device="meta").to_empty(device=resolve_device(device))
     load_tree(model.embed, tree["embed"], "embed")
     load_tree(model.final_norm, tree["final_norm"], "final_norm")
     if len(tree["stages"]) != len(cfg.stages):

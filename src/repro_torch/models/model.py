@@ -26,6 +26,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import kvcache as kc
 from repro_torch.models import layers as L
@@ -118,10 +119,13 @@ def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
 
 class Model(nn.Module):
     """The embedding, the stages (``nn.ModuleList`` of layers each) and the
-    final norm; parameters are fp32 masters drawn from ``generator``."""
+    final norm; parameters are fp32 masters drawn from ``generator`` on
+    ``device`` (default: the current CUDA card; ``"cpu"`` or ``"meta"``
+    when asked)."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
+        device = resolve_device(device)
         if cfg.encoder is not None or cfg.frontend != "none":
             raise NotImplementedError(f"encoder / modality frontend: {LM_ITEM}")
         self.embed = L.init_embedding(cfg.vocab, cfg.d_model,
@@ -140,7 +144,9 @@ def init_params(cfg: ModelConfig, generator=None, device=None) -> Model:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> list:
-    """Per-layer caches mirroring ``Model.stages``: ``caches[si][li]``."""
+    """Per-layer caches mirroring ``Model.stages``: ``caches[si][li]``, on
+    ``device`` (default: the current CUDA card)."""
+    device = resolve_device(device)
     return [[kc.init_layer_cache(spec, batch, max_len, dtype, device)
              for _ in range(stage.repeat) for spec in stage.pattern]
             for stage in cfg.stages]

@@ -367,3 +367,106 @@ def test_lm_serving_runs_the_kernel(cuda_device):
     assert launch_counts()[flash_attention.NAME] == after_prefill
     top = ref.abs().max().item()
     assert (dec[:, 0] - ref[:, s]).abs().max().item() <= TF_TOL * top
+
+
+# --- the streaming kernels: rotate_blocks (16- or 8-byte vectors) and the
+# spectral scale (16-byte vectors), bitwise against their plain versions ---
+
+def _offset_randn(dev, numel, offset, seed):
+    """``numel`` complex64 values whose base lies ``offset`` elements past
+    an allocation (offset 1: only 8-byte aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn(numel + offset, dtype=torch.complex64, device=dev,
+                      generator=gen)
+    return buf[offset:]
+
+
+# (outer, unit): unit 1 and odd units take 8-byte vectors, even ones
+# 16-byte vectors; runs of 8 bytes to 48 KB, shorter and longer than a
+# thread block's 1024 vectors, so a block spans several runs or a run
+# several blocks
+ROTATE_RUNS = [(3, 1), (5, 7), (4, 16), (6, 64), (4, 128), (3, 1000),
+               (2, 6000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outer,unit", ROTATE_RUNS)
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_rotate_paths_match_plain(cuda_device, outer, unit, p):
+    for offset in (0, 1):
+        x = _offset_randn(cuda_device, outer * p * unit, offset, unit + p)
+        for spm in (False, True):
+            for dpm in (False, True):
+                for shift in range(p):
+                    got = _launched(tp.NAME, lambda: tp.rotate_block_rows(
+                        x, outer, p, unit, shift, spm, dpm))
+                    want = tp.rotate_block_rows_plain(x, outer, p, unit,
+                                                      shift, spm, dpm)
+                    assert torch.equal(got, want), (offset, spm, dpm, shift)
+        path = tp.rotate_path(unit, x.data_ptr(), got.data_ptr())
+        aligned = offset == 0 and unit % 2 == 0
+        assert path == (tp.VEC16 if aligned else tp.VEC8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rotate_past_2gib(cuda_device, offset):
+    """Three 1 GiB blocks: runs start at byte offsets 0, 2^30 and 2^31 and
+    end at 3·2^30 (16-byte vectors when aligned, 8-byte ones when not)."""
+    unit = 1 << 27
+    x = _offset_randn(cuda_device, 3 * unit, offset, 7)
+    for spm, dpm in ((False, False), (True, False), (False, True)):
+        got = _launched(tp.NAME, lambda: tp.rotate_block_rows(
+            x, 1, 3, unit, 2, spm, dpm))
+        for i in range(3):
+            j = (i + 2) % 3
+            assert torch.equal(got[i * unit:(i + 1) * unit],
+                               x[j * unit:(j + 1) * unit])
+        del got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 513, 1024, 4097])
+@pytest.mark.parametrize("x_offset,h_offset", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("alpha", [1.0, 0.25])
+def test_spectral_scale_streams_bitwise(cuda_device, n, x_offset, h_offset,
+                                        alpha):
+    """Both variants against the plain version, to the bit: bases one
+    element in (8-byte aligned), odd totals (a vector across a row
+    boundary), n = 1, and n = 4097."""
+    rows = 37
+    x = _offset_randn(cuda_device, rows * n, x_offset, n).view(rows, n)
+    hf = _offset_randn(cuda_device, rows * n, h_offset, n + 1).view(rows, n)
+    hb = _offset_randn(cuda_device, n, h_offset, n + 2)
+    got = _launched(spectral_scale.FULL, lambda: spectral_scale.
+                    spectral_scale_planes_full(x, hf, alpha))
+    assert torch.equal(got, spectral_scale.spectral_scale_plain(x, hf, alpha))
+    assert got.data_ptr() % 16 == x.data_ptr() % 16
+    got = _launched(spectral_scale.BROADCAST, lambda: spectral_scale.
+                    spectral_scale_planes(x, hb, alpha))
+    assert torch.equal(got, spectral_scale.spectral_scale_plain(x, hb, alpha))
+
+
+@pytest.mark.cuda
+def test_spectral_scale_long_stream(cuda_device):
+    """Many grid strides per thread: 2^22 rows of 3 (a column pattern that
+    never lines up with the vectors) and (2048, 1024) full."""
+    for rows, n in ((1 << 22, 3), (2048, 1024)):
+        x = _offset_randn(cuda_device, rows * n, 0, n).view(rows, n)
+        h = _offset_randn(cuda_device, rows * n, 0, n + 1).view(rows, n)
+        assert torch.equal(spectral_scale.spectral_scale_planes(x, h[0], 0.5),
+                           spectral_scale.spectral_scale_plain(x, h[0], 0.5))
+        assert torch.equal(spectral_scale.spectral_scale_planes_full(x, h),
+                           spectral_scale.spectral_scale_plain(x, h))
+
+
+@pytest.mark.cuda
+def test_model_constructors_default_to_the_card(cuda_device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_caches, init_params
+    cfg = get_config("h2o-danube-3-4b", smoke=True)
+    for model in (init_params(cfg), Model(cfg)):
+        assert all(p.device.type == "cuda" for p in model.parameters())
+    caches = init_caches(cfg, 1, 8)
+    assert caches[0][0]["self"]["k"].device.type == "cuda"

@@ -46,7 +46,8 @@ def _pair(dtype="float32", seed=0):
                                   dtype=dtype)
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), dtype=dtype)
     ref_params = ref_init_params(jax.random.PRNGKey(seed), ref_cfg)
-    model = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg)
+    model = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg,
+                              device="cpu")
     return ref_cfg, ref_params, cfg, model
 
 
@@ -81,7 +82,8 @@ def test_train_prefill_decode_match_reference(b, s):
                                       jnp.asarray(tokens[:, :s]),
                                       mode="prefill", caches=ref_caches,
                                       kv_block=16)
-    caches = init_caches(cfg, b, max_len=64, dtype=torch.float32)
+    caches = init_caches(cfg, b, max_len=64, dtype=torch.float32,
+                         device="cpu")
     pre, caches = forward(model, cfg, torch.from_numpy(tokens[:, :s]),
                           mode="prefill", caches=caches, kv_block=16)
     _close(pre, ref_pre, TF_TOL)
@@ -115,7 +117,7 @@ def test_bf16_serving_matches_reference():
     prefill, decode = make_serve_steps(ref_cfg, b, 64, kv_block=16,
                                        device="cpu")
     ref_caches = ref_init_caches(ref_cfg, b, 64, dtype=jnp.bfloat16)
-    caches = init_caches(cfg, b, 64, dtype=torch.bfloat16)
+    caches = init_caches(cfg, b, 64, dtype=torch.bfloat16, device="cpu")
     ref_last, ref_caches = ref_prefill(ref_params, jnp.asarray(tokens[:, :s]),
                                        ref_caches)
     last, caches = prefill(model, tokens[:, :s], caches)
@@ -207,11 +209,39 @@ def test_serve_steps_default_to_the_card():
         make_serve_steps(cfg, 1, 8)
 
 
+@pytest.mark.parametrize("build", ["init_params", "Model", "init_caches",
+                                   "params_from_numpy"])
+def test_model_constructors_default_to_the_card(monkeypatch, build):
+    """With no device the constructors build on the current CUDA card, and
+    where there is none they raise naming ``device='cpu'``; with
+    ``device="cpu"`` they build on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config(ARCH, smoke=True)
+    calls = {
+        "init_params": lambda **kw: init_params(cfg, **kw),
+        "Model": lambda **kw: Model(cfg, **kw),
+        "init_caches": lambda **kw: init_caches(cfg, 1, 8, **kw),
+        "params_from_numpy": lambda **kw: params_from_numpy(
+            jax.tree.map(np.asarray, ref_init_params(
+                jax.random.PRNGKey(0), ref_get_config(ARCH, smoke=True))),
+            cfg, **kw),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[build]()
+    built = calls[build](device="cpu")
+    if isinstance(built, Model):
+        tensors = list(built.parameters())
+    else:
+        tensors = [t for layers in built for cache in layers
+                   for t in cache["self"].values()]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
 def test_serve_steps_check_their_inputs():
     cfg = get_config(ARCH, smoke=True)
-    model = init_params(cfg, torch.Generator().manual_seed(0))
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     prefill, decode = make_serve_steps(cfg, 2, 8, device="cpu")
-    caches = init_caches(cfg, 2, 8, dtype=torch.bfloat16)
+    caches = init_caches(cfg, 2, 8, dtype=torch.bfloat16, device="cpu")
     with pytest.raises(ValueError, match="exceeds max_len"):
         prefill(model, np.zeros((2, 9), np.int32), caches)
     with pytest.raises(ValueError, match=r"expected \(2, S\)"):
@@ -230,7 +260,7 @@ def test_params_from_numpy_checks_the_tree():
     cfg = get_config(ARCH, smoke=True)
     tree = jax.tree.map(np.asarray,
                         ref_init_params(jax.random.PRNGKey(0), ref_cfg))
-    model = params_from_numpy(tree, cfg)
+    model = params_from_numpy(tree, cfg, device="cpu")
     assert model.stages[0][1].mixer.wq.shape == (64, 4, 16)
     np.testing.assert_array_equal(model.stages[0][1].ffn.w_up.numpy(),
                                   tree["stages"][0]["p0"]["ffn"]["w_up"][1])
@@ -238,11 +268,11 @@ def test_params_from_numpy_checks_the_tree():
     bad = jax.tree.map(lambda a: a, tree)
     del bad["stages"][0]["p0"]["ffn"]["w_gate"]
     with pytest.raises(ValueError, match="w_gate"):
-        params_from_numpy(bad, cfg)
+        params_from_numpy(bad, cfg, device="cpu")
     bad = jax.tree.map(lambda a: a, tree)
     bad["embed"]["tok"] = bad["embed"]["tok"][:, :32]
     with pytest.raises(ValueError, match="shape"):
-        params_from_numpy(bad, cfg)
+        params_from_numpy(bad, cfg, device="cpu")
 
 
 def test_full_config_param_count_without_allocating():
