@@ -53,12 +53,24 @@ into ``build/``, then runs:
    K in {1, 2} x overlap mode x output layout, each rank's block checked
    against its slice of ``torch.fft.fftn``, the impls bitwise equal; then
    one profiled pencil ring forward per K (outside the count): rank 0's
-   ``rotate_blocks`` device time and any copy before the pack;
+   ``rotate_blocks`` device time and any copy before the pack; then (3g)
+   the gradients of ``sum |y|^2`` on the pencil mesh, c2c and packed r2c
+   x batch 1 and 2 x every transpose impl, every rank calling
+   ``backward()``, held against the oracle (Parseval ``2 N x``;
+   ``torch.fft.rfftn`` autograd) within 1e-4 and ring/pairwise against
+   alltoall within 1e-4, ``rotate_blocks`` launched in every ring and
+   pairwise backward;
 3b. the same ranks on a 256^3 real field: packed r2c forward, inverse
    and ``forward_filtered`` (filter after and folded before the plane
    unfold), pencil and slab x transpose impl x K, each rank's block
    against its slice of ``torch.fft.rfftn`` (1e-5 relative), bitwise
    equal across impls and K;
+3c. 8 ranks on the one card (gloo), a 2x2x2 mesh at 256^3: the cell
+   decomposition and pencil over the folded axis ``(("a", "b"), "c")``
+   (both layouts), K in {1, 2}, against ``torch.fft.fftn``'s slice
+   (5e-4 * max|ref|) and by their round trips (< 1e-4); the r2c embed
+   strategy on pencil 2x4 and cell against ``torch.fft.rfftn`` (5e-5 *
+   max|ref|); one cell gradient (Parseval, 1e-3);
 4. h2o-danube-3-4b serving at full width and depth (24 layers, bf16,
    weights drawn on the card from the seed): ``make_serve_steps``
    prefill of a 2 x 6144 ``synth_tokens`` prompt (past the 4096-token
@@ -69,11 +81,22 @@ into ``build/``, then runs:
    its first token; then a float32 teacher-forcing check at full width
    and 2 layers (the FFMA variant): the decode logits at position 6144
    within 2e-4 * max|ref| of the train pass over 6145 tokens;
-5. one JSON line on the kernels, the card's name and power limit, and
+5. gradients at full width, meshless, croft-1024 with
+   ``local_impl="pallas"``: ``loss = sum |y|^2`` of the c2c forward of a
+   1024^3 complex64 field (x.grad against Parseval's 2 N x, 1e-3 of
+   max|ref|; three ``fft4step`` launches each way) and of the packed
+   r2c ``forward_filtered`` of a 1024^3 real field by a full complex
+   filter (h.grad against 2 |s|^2 h and x.grad against
+   ``torch.fft.rfftn`` autograd, 1e-4 of max|ref|; the unpack in the
+   forward, ``spectral_scale_full`` twice and ``fft4step`` three times
+   in the backward); wall times, each direction's launches, peak memory
+   and a profiled forward and forward+backward by kernel;
+6. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
-3b, 4) and read just after it.
+3b, 3g, 3c, 4, 5; in 3g and 5 before each backward too) and read just
+after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -98,6 +121,7 @@ SEED = 0
 FULL = 1024            # croft-1024, src/repro/configs/croft_fft.py
 DIST = 256             # phase-3 grid: 4 ranks share one card's memory and wire
 RANKS = 4
+CELL_RANKS = 8         # phase 3c: a 2x2x2 mesh on the one card
 HALF = 512             # c2c forward_filtered grid of phase 2b
 ARCH = "h2o-danube-3-4b"  # src/repro/configs/h2o_danube3_4b.py
 BATCH = 2              # phase-4 sequences
@@ -113,6 +137,8 @@ RT_TOL = 1e-4          # tests/test_distributed_fft.py:28
 HERM_TOL = 1e-6        # tests/test_real_fft.py:149
 SCALE_TOL = 1e-5       # tests/test_kernels_fft.py:68
 RFFT_TOL = 5e-5        # tests/test_real_fft.py:160
+GRAD_TOL = 1e-4        # tests/test_grad.py:110 (relative to max|ref|)
+PARSEVAL_TOL = 1e-3    # tests/test_schedule.py:648
 DIST_R2C_TOL = 1e-5    # tests/test_real_fft.py:338
 ATTN_TOL = 5e-5       # tests/test_kernels_fft.py:103 (float32, absolute)
 # bfloat16, per element: ATTN_BF16_REL·|want| + ATTN_TOL.  Both sides work
@@ -476,14 +502,21 @@ def is_copy(key: str) -> bool:
     return ("copy_kernel" in k or "memcpy" in k) and "cat" not in k
 
 
-def profile_device(fn, phase: str, what: str, top: int) -> tuple:
+def profile_device(fn, phase: str, what: str, top: int,
+                   warmup: int = 0) -> tuple:
     """Run ``fn`` once under the profiler; print its device busy time, the
-    copy launches in it and its top kernels; return (busy ms, copies)."""
+    copy launches in it and its top kernels; return (busy ms, copies).
+    With ``warmup``, that many calls run first inside the profiler's
+    warm-up steps and only the last is recorded."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    plan = schedule(wait=0, warmup=warmup, active=1) if warmup else None
+    with profile(activities=[ProfilerActivity.CUDA], schedule=plan) as prof:
+        for i in range(warmup + 1):
+            fn()
+            torch.cuda.synchronize()
+            if i < warmup:
+                prof.step()        # the last call stays in the active step
     rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     rows = [e for e in rows if e.device_time_total > 0]
     busy = sum(e.device_time_total for e in rows) / 1e3
@@ -941,7 +974,93 @@ def worker(rank: int, port: int) -> None:
     print("RESULT " + json.dumps(res), flush=True)
     res = worker_r2c(rank, dev, meshes)
     print("RESULT_R2C " + json.dumps(res), flush=True)
+    res = worker_grad(rank, dev, meshes)
+    print("RESULT_GRAD " + json.dumps(res), flush=True)
     dist.destroy_process_group()
+
+
+def _sq_norm(y):
+    """sum |y|^2 as one reduction (no |y| temporary of the field's size)."""
+    import torch
+    return torch.linalg.vector_norm(y) ** 2
+
+
+def worker_grad(rank: int, dev, meshes) -> dict:
+    """Phase 3's gradients on one rank: on the pencil 2x2 mesh at 256^3,
+    ``loss = sum |y|^2`` summed over the ranks, c2c and packed r2c x
+    batch 1 and 2 x every transpose impl; every rank calls
+    ``backward()``.  x.grad is held against the oracle (c2c: Parseval,
+    2 N x; r2c: ``torch.fft.rfftn`` autograd on the whole field) and ring
+    and pairwise against alltoall; the backward's launches are counted
+    per configuration."""
+    import torch
+    from repro_torch.core import Croft3D, Decomposition, FFTOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    shape = (DIST,) * 3
+    mesh, kind, names = meshes[0]
+    dec = Decomposition(kind, names)
+    n = float(DIST ** 3)
+    res = {"rank": rank, "err": 0.0, "impl_err": 0.0, "bwd_launches": {},
+           "fwd_ms": {}, "bwd_ms": {}}
+    total = {}
+    for problem in ("c2c", "r2c"):
+        kw = {} if problem == "c2c" else dict(problem="r2c",
+                                              strategy="packed")
+        for batch in (1, 2):
+            if problem == "c2c":
+                x = torch.randn(batch, *shape, dtype=torch.complex64,
+                                device=dev, generator=gen)
+                want = 2 * n * x
+            else:
+                x = torch.randn(batch, *shape, device=dev, generator=gen)
+                full = x.clone().requires_grad_()
+                _sq_norm(torch.fft.rfftn(full, dim=(-3, -2, -1))).backward()
+                want = full.grad          # oracle only
+            grads = {}
+            for impl in ("alltoall", "ring", "pairwise"):
+                plan = Croft3D(shape, mesh, dec, FFTOptions(
+                    transpose_impl=impl, local_impl="pallas"), **kw)
+                sl = (Ellipsis,) + plan.input_sharding
+                xl = x[sl].contiguous()
+                if batch == 1:
+                    xl = xl[0].clone()
+                xl.requires_grad_()
+                fwd = plan.forward if batch == 1 else plan.forward_batched
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = fwd(xl)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                reset_launch_counts()
+                _sq_norm(y).backward()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                tag = f"{kind}/{problem}/b{batch}/{impl}"
+                res["bwd_launches"][tag] = launch_counts()
+                for name, c in launch_counts().items():
+                    total[name] = total.get(name, 0) + c
+                res["fwd_ms"][tag] = (t1 - t0) * 1e3
+                res["bwd_ms"][tag] = (t2 - t1) * 1e3
+                g = xl.grad if batch == 2 else xl.grad[None]
+                ref = want[sl]
+                err = (g - ref).abs().max().item() / ref.abs().max().item()
+                if err >= GRAD_TOL:
+                    raise SystemExit(f"rank {rank} {tag}: grad err {err}")
+                grads[impl] = g
+                res["err"] = max(res["err"], err)
+                if impl != "alltoall":
+                    if res["bwd_launches"][tag].get("rotate_blocks", 0) == 0:
+                        raise SystemExit(f"rank {rank} {tag}: no "
+                                         "rotate_blocks in the backward")
+                    d = ((g - grads["alltoall"]).abs().max().item()
+                         / grads["alltoall"].abs().max().item())
+                    if d >= GRAD_TOL:
+                        raise SystemExit(f"rank {rank} {tag}: differs from "
+                                         f"alltoall by {d}")
+                    res["impl_err"] = max(res["impl_err"], d)
+    res["launches"] = total
+    return res
 
 
 def worker_r2c(rank: int, dev, meshes) -> dict:
@@ -1148,7 +1267,7 @@ def _summarize(results: list, phase: str) -> dict:
     return counts
 
 
-def phase_distributed() -> tuple[dict, dict]:
+def phase_distributed() -> tuple[dict, dict, dict]:
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", str(r),
@@ -1165,17 +1284,17 @@ def phase_distributed() -> tuple[dict, dict]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    results, results_r2c = [], []
+    results, results_r2c, results_grad = [], [], []
     for r, (p, out) in enumerate(zip(procs, outs)):
-        lines = [l for l in out.splitlines() if l.startswith("RESULT ")]
-        lines_r2c = [l for l in out.splitlines()
-                     if l.startswith("RESULT_R2C ")]
-        if p.returncode != 0 or not lines or not lines_r2c:
+        found = {key: [l for l in out.splitlines() if l.startswith(key + " ")]
+                 for key in ("RESULT", "RESULT_R2C", "RESULT_GRAD")}
+        if p.returncode != 0 or not all(found.values()):
             print(out[-4000:], file=sys.stderr)
             raise SystemExit(f"FAILED: phase 3/3b rank {r} exited "
                              f"{p.returncode}")
-        results.append(json.loads(lines[-1][len("RESULT "):]))
-        results_r2c.append(json.loads(lines_r2c[-1][len("RESULT_R2C "):]))
+        for key, into in (("RESULT", results), ("RESULT_R2C", results_r2c),
+                          ("RESULT_GRAD", results_grad)):
+            into.append(json.loads(found[key][-1][len(key) + 1:]))
     counts = _summarize(results, "3")
     print(f"[3] profiled pencil ring forward, rank 0: "
           f"{json.dumps(results[0]['pack_profile'])}", flush=True)
@@ -1186,7 +1305,293 @@ def phase_distributed() -> tuple[dict, dict]:
     for name in ("fft4step", "rotate_blocks", "unpack_two_for_one",
                  "hermitian_extend", "spectral_scale_full"):
         check(counts_r2c.get(name, 0) > 0, f"{name} not launched in phase 3b")
-    return counts, counts_r2c
+    counts_grad = {}
+    for res in results_grad:
+        for name, c in res["launches"].items():
+            counts_grad[name] = counts_grad.get(name, 0) + c
+    for tag in results_grad[0]["bwd_ms"]:
+        print(f"[3g] {tag}: forward {max(r['fwd_ms'][tag] for r in results_grad):.1f}"
+              f" ms, backward {max(r['bwd_ms'][tag] for r in results_grad):.1f}"
+              f" ms (slowest rank, host clock, gloo); backward launches per "
+              f"rank {results_grad[0]['bwd_launches'][tag]}", flush=True)
+    print(f"[3g] {RANKS} ranks, {DIST}^3 gradients: max rel err "
+          f"{max(r['err'] for r in results_grad):.3e} vs the oracle, "
+          f"{max(r['impl_err'] for r in results_grad):.3e} ring/pairwise vs "
+          f"alltoall; backward launches {counts_grad}", flush=True)
+    for name in ("fft4step", "rotate_blocks"):
+        check(counts_grad.get(name, 0) > 0,
+              f"{name} not launched in phase 3's backward passes")
+    return counts, counts_r2c, counts_grad
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the cell decomposition, a folded axis and the distributed
+# embed, 8 ranks on one card
+# ---------------------------------------------------------------------------
+
+def worker_cell(rank: int, port: int) -> None:
+    """One rank of phase 3c; prints its result as a JSON line."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Croft3D, Decomposition, FFTOptions, make_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=CELL_RANKS)
+    cube = make_mesh((2, 2, 2), ("a", "b", "c"), device=dev)
+    flat = make_mesh((2, 4), ("y", "z"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    shape = (DIST,) * 3
+    x = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    xr = torch.randn(*shape, device=dev, generator=gen)
+    ref = torch.fft.fftn(x)        # oracles only
+    ref_r = torch.fft.rfftn(xr)
+    res = {"rank": rank, "err": {}, "rt": {}, "ms": {}}
+    reset_launch_counts()
+    c2c = [("cell", cube, Decomposition("cell", ("a", "b", "c")), layout)
+           for layout in ("natural",)]
+    c2c += [("pencil-folded", cube,
+             Decomposition("pencil", (("a", "b"), "c")), layout)
+            for layout in ("natural", "spectral")]
+    for kind, mesh, dec, layout in c2c:
+        for k in (1, 2):
+            plan = Croft3D(shape, mesh, dec, FFTOptions(
+                overlap_k=k, output_layout=layout, local_impl="pallas"))
+            xl = x[plan.input_sharding].contiguous()
+            y, t = _wall(lambda: plan.forward(xl))
+            want = ref[plan.output_sharding]
+            tag = f"{kind}/{layout}/k{k}"
+            res["err"][tag] = ((y - want).abs().max().item()
+                               / ref.abs().max().item())
+            res["rt"][tag] = (plan.inverse(y) - xl).abs().max().item()
+            res["ms"][tag] = t
+            if res["err"][tag] >= FFT3_TOL or res["rt"][tag] >= RT_TOL:
+                raise SystemExit(f"rank {rank} {tag}: err {res['err'][tag]} "
+                                 f"rt {res['rt'][tag]}")
+    for kind, mesh, dec in (
+            ("pencil", flat, Decomposition("pencil", ("y", "z"))),
+            ("cell", cube, Decomposition("cell", ("a", "b", "c")))):
+        plan = Croft3D(shape, mesh, dec, FFTOptions(local_impl="pallas"),
+                       problem="r2c", strategy="embed")
+        xl = xr[plan.input_sharding].contiguous()
+        y, t = _wall(lambda: plan.forward(xl))
+        tag = f"{kind}/r2c-embed"
+        res["err"][tag] = ((y - ref_r[plan.output_sharding]).abs().max().item()
+                           / ref_r.abs().max().item())
+        res["rt"][tag] = (plan.inverse(y) - xl).abs().max().item()
+        res["ms"][tag] = t
+        if res["err"][tag] >= RFFT_TOL or res["rt"][tag] >= RT_TOL:
+            raise SystemExit(f"rank {rank} {tag}: err {res['err'][tag]} "
+                             f"rt {res['rt'][tag]}")
+    # one cell gradient: loss = sum |y|^2 over the ranks, Parseval
+    plan = Croft3D(shape, cube, Decomposition("cell", ("a", "b", "c")),
+                   FFTOptions(local_impl="pallas"))
+    xl = x[plan.input_sharding].contiguous().requires_grad_()
+    fwd_before = launch_counts()
+    y = plan.forward(xl)
+    fwd = {n: c - fwd_before.get(n, 0) for n, c in launch_counts().items()}
+    before = launch_counts()
+    _, t = _wall(lambda: _sq_norm(y).backward())
+    res["bwd_launches"] = {n: c - before.get(n, 0)
+                           for n, c in launch_counts().items()}
+    res["fwd_launches"] = fwd
+    want = 2 * float(DIST ** 3) * xl.detach()
+    res["err"]["cell/grad"] = ((xl.grad - want).abs().max().item()
+                               / want.abs().max().item())
+    res["ms"]["cell/grad backward"] = t
+    if res["err"]["cell/grad"] >= PARSEVAL_TOL:
+        raise SystemExit(f"rank {rank} cell grad err {res['err']['cell/grad']}")
+    res["launches"] = launch_counts()
+    res["reshard_bytes"] = cube.reshard_bytes + flat.reshard_bytes
+    print("RESULT_CELL " + json.dumps(res), flush=True)
+    dist.destroy_process_group()
+
+
+def phase_cell() -> dict:
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker-cell", str(r),
+         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(CELL_RANKS)]
+    outs = []
+    try:
+        deadline = time.time() + TIMEOUT_S
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [l for l in out.splitlines() if l.startswith("RESULT_CELL ")]
+        if p.returncode != 0 or not lines:
+            print(out[-4000:], file=sys.stderr)
+            raise SystemExit(f"FAILED: phase 3c rank {r} exited "
+                             f"{p.returncode}")
+        results.append(json.loads(lines[-1][len("RESULT_CELL "):]))
+    counts = {}
+    for res in results:
+        for name, c in res["launches"].items():
+            counts[name] = counts.get(name, 0) + c
+    for tag in results[0]["err"]:
+        print(f"[3c] {tag}: max rel err {max(r['err'][tag] for r in results):.3e}"
+              + (f", round trip {max(r['rt'][tag] for r in results):.3e}"
+                 if tag in results[0]["rt"] else "")
+              + (f", {max(r['ms'][tag] for r in results):.1f} ms (slowest "
+                 "rank, host clock, gloo)" if tag in results[0]["ms"] else ""),
+              flush=True)
+    print(f"[3c] {CELL_RANKS} ranks, {DIST}^3: cell gradient launches per "
+          f"rank forward {results[0]['fwd_launches']} backward "
+          f"{results[0]['bwd_launches']}; all launches {counts}; reshard "
+          f"bytes {sum(r['reshard_bytes'] for r in results)}", flush=True)
+    check(counts.get("fft4step", 0) > 0, "fft4step not launched in phase 3c")
+    check(results[0]["bwd_launches"].get("fft4step", 0) > 0,
+          "fft4step not launched in the cell backward")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: gradients at full width, meshless
+# ---------------------------------------------------------------------------
+
+def _grad_run(fn, inputs, what: str, runs: int = 2) -> dict:
+    """``loss = sum |fn(*inputs)|^2`` forward, then backward, ``runs``
+    times: the first step pays for the allocator's growth and autograd's
+    device thread, the last is warm.  Per step: wall times, the device
+    time of each direction (CUDA events; the backward's includes the
+    loss and its gradient), each direction's launches and the peak
+    memory.  Returns the last step's numbers and the launches of all."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    fwd_all, bwd_all = {}, {}
+    for step in range(runs):
+        for t in inputs:
+            t.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        y = fn(*inputs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        t_fwd = (time.perf_counter() - t0) * 1e3
+        fwd = launch_counts()
+        reset_launch_counts()
+        _sq_norm(y).backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        t_all = (time.perf_counter() - t0) * 1e3
+        del y
+        out = dict(fwd=fwd, bwd=launch_counts(), fwd_ms=t_fwd, step_ms=t_all,
+                   fwd_dev_ms=ev[0].elapsed_time(ev[1]),
+                   bwd_dev_ms=ev[1].elapsed_time(ev[2]),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        for into, counts in ((fwd_all, out["fwd"]), (bwd_all, out["bwd"])):
+            for name, c in counts.items():
+                into[name] = into.get(name, 0) + c
+        print(f"[5] {what}, step {step + 1} of {runs}: forward "
+              f"{t_fwd:.2f} ms, forward+backward {t_all:.2f} ms (wall); "
+              f"device forward {out['fwd_dev_ms']:.2f} ms, backward with "
+              f"the loss {out['bwd_dev_ms']:.2f} ms (events); launches "
+              f"forward {out['fwd']} backward {out['bwd']}; peak "
+              f"{out['peak_gib']:.1f} GiB", flush=True)
+    out["fwd_all"], out["bwd_all"] = fwd_all, bwd_all
+    return out
+
+
+def _profile_step(fn, inputs, what: str) -> None:
+    """Device time by kernel of one forward, then of one forward+backward
+    (outside the counted runs), each profiled after one unprofiled
+    warm-up call."""
+    import torch
+    with torch.no_grad():
+        profile_device(lambda: fn(*inputs), "5", f"{what} forward", 6,
+                       warmup=1)
+
+    def step():
+        for t in inputs:
+            t.grad = None
+        _sq_norm(fn(*inputs)).backward()
+    profile_device(step, "5", f"{what} forward+backward", 12, warmup=1)
+    for t in inputs:
+        t.grad = None
+    torch.cuda.empty_cache()
+
+
+def phase_grad(dev) -> dict:
+    """Phase 5: ``loss = sum |y|^2`` through the croft-1024 plans,
+    meshless, ``local_impl="pallas"``: the c2c forward (Parseval: x.grad =
+    2 N x) and the packed r2c ``forward_filtered`` (h.grad = 2 |s|^2 h,
+    x.grad against ``torch.fft.rfftn`` autograd)."""
+    import torch
+    from repro_torch.core import Croft3D, FFTOptions
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    shape = (FULL,) * 3
+    opts = FFTOptions(local_impl="pallas")
+    fwd, bwd = {}, {}
+
+    def add(run):
+        for into, counts in ((fwd, run["fwd_all"]), (bwd, run["bwd_all"])):
+            for name, c in counts.items():
+                into[name] = into.get(name, 0) + c
+
+    plan = Croft3D(shape, opts=opts)
+    x = torch.randn(*shape, dtype=torch.complex64, device=dev,
+                    generator=gen).requires_grad_()
+    run = _grad_run(plan.forward, [x], "c2c forward")
+    add(run)
+    n2 = 2.0 * FULL ** 3
+    err = max((x.grad[i:i + 64] - n2 * x.detach()[i:i + 64]).abs().max().item()
+              for i in range(0, FULL, 64)) / (n2 * max_abs(x.detach()))
+    print(f"[5] c2c x.grad vs 2 N x: max rel err {err:.3e}", flush=True)
+    check(err < PARSEVAL_TOL, f"c2c gradient vs Parseval {err}")
+    check(run["fwd"].get("fft4step") == 3 and run["bwd"].get("fft4step") == 3,
+          f"c2c fft4step launches forward/backward {run['fwd']} {run['bwd']}")
+    _profile_step(plan.forward, [x], "c2c")
+    del x
+    torch.cuda.empty_cache()
+
+    rplan = Croft3D(shape, problem="r2c", strategy="packed", opts=opts)
+    xr = torch.randn(*shape, device=dev, generator=gen).requires_grad_()
+    h = torch.randn(*rplan.spectrum_shape, dtype=torch.complex64, device=dev,
+                    generator=gen).requires_grad_()
+    run = _grad_run(rplan.forward_filtered, [xr, h], "r2c forward_filtered")
+    add(run)
+    gx, gh = xr.grad, h.grad
+    xr.grad = h.grad = None
+    with torch.no_grad():           # oracles only
+        s = torch.fft.rfftn(xr)
+        want_h = s.abs().square_().mul_(2) * h
+        del s
+    h_err = max_abs_diff(gh, want_h) / max_abs(want_h)
+    del want_h, gh
+    x2 = xr.detach().clone().requires_grad_()
+    _sq_norm(torch.fft.rfftn(x2) * h.detach()).backward()
+    x_err = max_abs_diff(gx, x2.grad) / max_abs(x2.grad)
+    del x2, gx
+    torch.cuda.empty_cache()
+    print(f"[5] r2c forward_filtered: h.grad vs 2|s|^2 h max rel err "
+          f"{h_err:.3e}, x.grad vs torch.fft.rfftn autograd {x_err:.3e}",
+          flush=True)
+    check(h_err < GRAD_TOL, f"r2c filter gradient {h_err}")
+    check(x_err < GRAD_TOL, f"r2c field gradient {x_err}")
+    check(run["fwd"].get("unpack_two_for_one", 0) >= 1,
+          f"r2c forward unpack launches {run['fwd']}")
+    check(run["bwd"].get("spectral_scale_full", 0) >= 2
+          and run["bwd"].get("fft4step") == 3,
+          f"r2c backward launches {run['bwd']}")
+    _profile_step(rplan.forward_filtered, [xr, h], "r2c filtered")
+    del xr, h
+    torch.cuda.empty_cache()
+    print(f"[5] launches per kernel, both cases: forward {fwd}, backward "
+          f"{bwd}", flush=True)
+    return {n: fwd.get(n, 0) + bwd.get(n, 0) for n in {*fwd, *bwd}}
 
 
 # ---------------------------------------------------------------------------
@@ -1352,7 +1757,7 @@ def main() -> int:
     timings.update(phase_attention_kernel(dev))
     phase_host_overhead(dev)
     paths = [phase_full(dev), phase_real_full(dev), *phase_distributed(),
-             phase_serve(dev)]
+             phase_cell(), phase_serve(dev), phase_grad(dev)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
@@ -1396,5 +1801,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--worker":
         worker(int(sys.argv[2]), int(sys.argv[3]))
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker-cell":
+        worker_cell(int(sys.argv[2]), int(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -9,10 +9,13 @@ with its own local block.
 Problem classes: ``problem="c2c"`` (default) plans the complex
 transform; ``problem="r2c"`` plans a real-input transform whose forward
 matches ``torch.fft.rfftn`` and whose inverse is the exact c2r — the
-packed two-for-one pipeline, or (meshless only, so far) the embedding
-(``repro_torch.real``, ``strategy=``).  ``forward_filtered`` fuses a
-k-space multiply into the forward; :func:`poisson_solve` is the spectral
-solver built on it.
+packed two-for-one pipeline or the embedding (``repro_torch.real``,
+``strategy=``).  ``forward_filtered`` fuses a k-space multiply into the
+forward; :func:`poisson_solve` is the spectral solver built on it.
+
+Every transform is differentiable: ``loss.backward()`` runs the adjoint
+schedule of the plan (``repro_torch.grad``), with a mesh on every rank
+— each rank must call ``backward()``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import distributed
-from repro_torch.core.decomposition import Decomposition
+from repro_torch.core.decomposition import Decomposition, spec_slices
 from repro_torch.core.distributed import FFTOptions
 from repro_torch.device import resolve_device
 
@@ -74,12 +77,8 @@ class Croft3D:
             self.device = resolve_device(self.device)
         if self.problem == "r2c":
             from repro_torch import real as real_lib
-            from repro_torch.core import rfft
             self.strategy = real_lib.resolve_strategy(
                 self.strategy, self.shape, self.mesh, self.decomp, self.opts)
-            if self.strategy == "embed" and real_lib.is_multidevice(
-                    self.mesh):
-                raise NotImplementedError(rfft.EMBED_NOT_PORTED)
 
     @classmethod
     def from_tokens(cls, shape: Sequence[int], decomp_token: str,
@@ -126,9 +125,14 @@ class Croft3D:
     def output_sharding(self) -> Optional[tuple]:
         """The global index ranges of this rank's output block.  The r2c
         half spectrum keeps Nh = Nz//2 + 1 local (it never divides the z
-        shards): its block is the spectral layout's."""
+        shards): its block is the spectral layout's, or for cell x and y
+        sharded with z replicated (``rfft.embed_spec``)."""
         if self.problem == "r2c":
-            return self._slices("spectral", self.spectrum_shape)
+            if self.mesh is None:
+                return None
+            from repro_torch.core.rfft import embed_spec
+            return spec_slices(embed_spec(self.decomp), self.spectrum_shape,
+                               self.mesh.shape, self.mesh.coords)
         return self._slices(self.opts.output_layout)
 
     def local_shape(self) -> tuple[int, ...]:
@@ -206,8 +210,12 @@ class Croft3D:
         return self.inverse(y)
 
     def release(self) -> None:
-        """The reference drops its compiled executables here; the port runs
-        eagerly and holds none, so there is nothing to drop."""
+        """Drop the cached autograd plans (``repro_torch.grad.vjp``; the
+        cache is shared by every plan and rebuilt on demand), and with
+        them the meshes they hold.  The port runs eagerly and holds no
+        compiled executables, the reference's other use of this hook."""
+        from repro_torch.grad import vjp
+        vjp.clear_plans()
 
     # -- models --------------------------------------------------------------
     def _forward_schedule(self):

@@ -163,6 +163,18 @@ def _canon_stage_tuple(name: str, value: Union[str, tuple]) -> Union[str, tuple]
     return value
 
 
+def _stage(blk: torch.Tensor, *, fft_axis: Optional[int],
+           comm_axis, split_axis: int, concat_axis: int, chunk_axis: int,
+           sign: int, opts: FFTOptions, mesh, stage: int = 0) -> torch.Tensor:
+    """One ad-hoc pipeline stage (K-chunked FFT -> all-to-all) on this
+    rank's block: a thin shim over :func:`schedule.run_stage` for callers
+    that use the CROFT overlap pattern outside a full 3-D schedule."""
+    st = schedule_lib.Stage("ad-hoc", fft_axis=fft_axis, comm_axis=comm_axis,
+                            split_axis=split_axis, concat_axis=concat_axis,
+                            chunk_axis=chunk_axis, impl_stage=stage)
+    return schedule_lib.run_stage(blk, st, sign, opts, mesh)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
@@ -188,6 +200,57 @@ def build_schedule(decomp: Decomposition, opts: FFTOptions,
                                   from_spectral=from_spectral)
 
 
+def inverse_schedule(sched: schedule_lib.Schedule) -> schedule_lib.Schedule:
+    """The unnormalized inverse of a pure c2c schedule.
+
+    The adjoint reverses the pipeline (every transpose swaps
+    split/concat; per-stage impl/K overrides ride along) and a 1-D DFT
+    matrix is symmetric, so the adjoint with the sign flipped *is* the
+    inverse up to the 1/N factor the caller applies via ``norm``.  This
+    is how searched schedules — which have no fixed inverse builder — get
+    their inverse.  Restricted to pure complex pipelines: packing
+    prologues/epilogues and out-of-body reshards are not sign-symmetric.
+    """
+    if any(st.prologue or st.epilogue for st in sched.stages) \
+            or sched.epilogue or sched.extra_comms:
+        raise ValueError("inverse_schedule covers pure c2c schedules only")
+    from repro_torch.grad.adjoint import adjoint_schedule
+    adj = adjoint_schedule(sched)
+    return dataclasses.replace(adj, name=f"{sched.name}^-1",
+                               sign=-sched.sign, points=None)
+
+
+def _run_plan(x: torch.Tensor, mesh, sched, opts: FFTOptions, scale,
+              kspace_filter: Optional[torch.Tensor]) -> torch.Tensor:
+    """Run ``sched`` through its plan (``repro_torch.grad.vjp``), so
+    ``backward()`` runs the adjoint schedule; without grad the ops are
+    those of the schedule alone."""
+    from repro_torch.grad import vjp
+    x = x.to(mesh.device)
+    nbatch = x.ndim - 3
+    if kspace_filter is None:
+        return vjp.linear_plan(mesh, sched, opts, scale, nbatch)(x)
+    return vjp.filtered_plan(mesh, sched, opts, scale, nbatch)(
+        x, kspace_filter.to(mesh.device, x.dtype))
+
+
+def scheduled_fft3d(x: torch.Tensor, mesh, sched: schedule_lib.Schedule,
+                    opts: Optional[FFTOptions] = None,
+                    norm: Optional[str] = None,
+                    kspace_filter: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Run a prebuilt :class:`~repro_torch.core.schedule.Schedule` — the
+    entry point for pipelines that exist only as schedule objects (mixed
+    per-stage transposes, searched orders).  ``x`` is this rank's block of
+    the schedule's input layout (leading batch dims allowed); the same
+    contract as :func:`distributed_fft3d` otherwise, gradients included."""
+    if opts is None:
+        opts = FFTOptions()
+    shape = sched.layout_in.global_shape(x.shape, mesh.shape)
+    return _run_plan(x, mesh, sched, opts, _norm_scale(shape, sched.sign, norm),
+                     kspace_filter)
+
+
 def distributed_fft3d(x: torch.Tensor, mesh, decomp: Decomposition,
                       sign: int = -1, opts: Optional[FFTOptions] = None,
                       norm: Optional[str] = None,
@@ -199,21 +262,19 @@ def distributed_fft3d(x: torch.Tensor, mesh, decomp: Decomposition,
 
     ``kspace_filter`` (this rank's block of a filter laid out like the
     output spectrum) fuses a pointwise k-space multiply into the
-    transform as a terminal schedule epilogue (``SpectralScale``)."""
+    transform as a terminal schedule epilogue (``SpectralScale``).
+
+    Differentiable in ``x`` and the filter: the run goes through the
+    plans of ``repro_torch.grad.vjp``, whose backward runs the adjoint
+    schedule (every rank must call ``backward()``)."""
     if opts is None:
         opts = FFTOptions()
     sched = build_schedule(decomp, opts, sign)
     shape = sched.layout_in.global_shape(x.shape, mesh.shape)
     decomp.validate(shape, mesh, opts.overlap_k, opts.transpose_impl)
     # normalization uses *global* sizes, applied to the local output
-    scale = _norm_scale(shape, sign, norm)
-    operands = None
-    if kspace_filter is not None:
-        sched = sched.with_epilogue(schedule_lib.SpectralScale())
-        operands = {"filter": kspace_filter.to(mesh.device, x.dtype)}
-    y = schedule_lib.run_schedule(x.to(mesh.device), sched, opts, mesh,
-                                  operands)
-    return y if scale is None else y * scale
+    return _run_plan(x, mesh, sched, opts, _norm_scale(shape, sign, norm),
+                     kspace_filter)
 
 
 def _local_device(mesh, device) -> torch.device:
@@ -233,8 +294,8 @@ def fft3d(x, mesh=None, decomp=None, opts: Optional[FFTOptions] = None,
                                   impl=opts.local_impl,
                                   plan_cache=opts.plan_cache, norm=norm)
         if kspace_filter is not None:
-            from repro_torch.kernels import spectral_scale as ss
-            y = ss.spectral_scale(y, kspace_filter.to(y.device, y.dtype))
+            from repro_torch.grad import vjp
+            y = vjp.spectral_scale(y, kspace_filter.to(y.device, y.dtype))
         return y
     return distributed_fft3d(x, mesh, decomp, -1, opts, norm, kspace_filter)
 

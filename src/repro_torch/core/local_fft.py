@@ -146,10 +146,35 @@ def fft3d_local(x: torch.Tensor, sign: int = -1, *, impl="matmul",
     """
     if x.ndim < 3:
         raise ValueError(f"fft3d_local needs >= 3 dims, got {x.ndim}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        from repro_torch.grad import vjp
+        return vjp.Linear.apply(x, _Local3D(sign, impl, plan_cache, norm))
+    return _fft3d(x, sign, impl, plan_cache, norm)
+
+
+def _fft3d(x, sign, impl, plan_cache, norm):
     for stage, ax in enumerate((-3, -2, -1)):
         stage_impl = impl[stage] if isinstance(impl, (tuple, list)) else impl
         x = fft_1d(x, ax, sign, impl=stage_impl, plan_cache=plan_cache)
     return apply_norm(x, sign, norm)
+
+
+class _Local3D:
+    """:func:`fft3d_local` as a linear plan (``grad.vjp.Linear``).
+    ``y = c F_s x`` with a real norm factor c, so ``x.grad = c F_{-s} g``:
+    the same kernels with the sign flipped and the same factor
+    (``apply_norm`` with the forward's sign)."""
+
+    def __init__(self, sign, impl, plan_cache, norm):
+        self.sign, self.impl, self.plan_cache, self.norm = (sign, impl,
+                                                            plan_cache, norm)
+
+    def run(self, x):
+        return _fft3d(x, self.sign, self.impl, self.plan_cache, self.norm)
+
+    def adjoint(self, g):
+        return apply_norm(_fft3d(g, -self.sign, self.impl, self.plan_cache,
+                                 "none"), self.sign, self.norm)
 
 
 def apply_norm(x: torch.Tensor, sign: int, norm: Optional[str]) -> torch.Tensor:

@@ -4,7 +4,9 @@ New in the port: it stands in for the reference's ``jax.sharding.Mesh``
 + ``shard_map`` + ``lax.axis_index``/``axis_size``/``all_to_all``/
 ``ppermute``.  Every rank runs the same program on its own local block;
 a mesh axis is one process group per line of the mesh
-(``torch.distributed.device_mesh``).  ``mesh=None`` (one rank) is the
+(``torch.distributed.device_mesh``), and a folded axis (a tuple of
+names, major first) one group per line of its set of axes, made for
+every set when the mesh is made.  ``mesh=None`` (one rank) is the
 meshless path, as in the reference.
 
 Collectives are issued asynchronously and return a :class:`Pending`;
@@ -70,6 +72,28 @@ class Mesh:
         self.backend = dist.get_backend()
         self.host_staged_bytes = 0
         self.reshard_bytes = 0
+        self._members = {}
+        self._folded = self._fold_groups()
+
+    def _fold_groups(self) -> dict:
+        """One process group per line of every set of two or more axes,
+        keyed by the set.  ``dist.new_group`` is collective over the
+        whole world, so every rank makes every group, in the same order,
+        here and not on first use (ranks that reached different stages
+        would wait on each other's groups)."""
+        names = self.axis_names
+        grid = self.device_mesh.mesh
+        mine = {}
+        for k in range(2, len(names) + 1):
+            for subset in itertools.combinations(range(len(names)), k):
+                rest = [d for d in range(len(names)) if d not in subset]
+                lines = grid.permute(*rest, *subset).reshape(
+                    -1, math.prod(grid.shape[d] for d in subset))
+                for line in lines.tolist():
+                    group = dist.new_group(sorted(line))
+                    if dist.get_rank() in line:
+                        mine[frozenset(names[d] for d in subset)] = group
+        return mine
 
     # -- shape and coordinates ----------------------------------------------
     @property
@@ -105,10 +129,37 @@ class Mesh:
         return self.device_mesh.get_local_rank(axis)
 
     def group(self, axis):
+        """The process group of this rank's line along ``axis``; a folded
+        axis (a tuple of names) takes the group of its set of axes."""
         if isinstance(axis, tuple):
-            raise NotImplementedError(
-                f"collectives over the folded axis {axis} are not ported yet")
+            return self._folded[frozenset(axis)]
         return self.device_mesh.get_group(axis)
+
+    def members(self, axis) -> list:
+        """Global ranks of this rank's line along ``axis``, by index along
+        it (a folded axis counts major-first, as :meth:`axis_index`)."""
+        got = self._members.get(axis)
+        if got is None:
+            names = axis if isinstance(axis, tuple) else (axis,)
+            here = self.coords
+            got = []
+            for idx in itertools.product(*(range(self.shape[a])
+                                           for a in names)):
+                at = dict(here, **dict(zip(names, idx)))
+                got.append(int(self.device_mesh.mesh[
+                    tuple(at[a] for a in self.axis_names)]))
+            self._members[axis] = got
+        return got
+
+    def _group_order(self, axis) -> Optional[list]:
+        """Group rank of each index along ``axis``, or None where the two
+        agree.  A group numbers its ranks in increasing global rank; a
+        fold whose major axis is not the mesh's major one (the cell's
+        (y, x) communicator) counts them in another order."""
+        members = self.members(axis)
+        ranked = sorted(members)
+        order = [ranked.index(m) for m in members]
+        return None if order == sorted(order) else order
 
     # -- the gloo transport of point-to-point pieces -------------------------
     def _staged(self, t: torch.Tensor) -> bool:
@@ -150,7 +201,14 @@ class Mesh:
         piece[split_axis] //= p
         chunks = (x.reshape(shape[:split_axis] + [p, piece[split_axis]]
                             + shape[split_axis + 1:])
-                  .movedim(split_axis, 0).contiguous())
+                  .movedim(split_axis, 0))
+        order = self._group_order(axis) if isinstance(axis, tuple) else None
+        if order is not None:
+            # chunk j goes to the group rank of index j, and what group
+            # rank order[j] sends lands at index j
+            chunks = chunks[torch.tensor(sorted(range(p), key=order.__getitem__),
+                                         device=x.device)]
+        chunks = chunks.contiguous()
         recv = torch.empty_like(chunks)
         work = dist.all_to_all_single(recv, chunks, group=self.group(axis),
                                       async_op=True)
@@ -158,7 +216,9 @@ class Mesh:
         def finish():
             out = list(piece)
             out[concat_axis] *= p
-            return recv.movedim(0, concat_axis).reshape(out)
+            got = recv if order is None else recv[torch.tensor(
+                order, device=recv.device)]
+            return got.movedim(0, concat_axis).reshape(out)
         return Pending([work], finish)
 
     def exchange(self, sends: Sequence, recvs: Sequence, axis) -> Pending:
@@ -200,45 +260,102 @@ class Mesh:
 
         Each rank sends every rank the intersection of its source block
         with that rank's destination block, and places what it receives
-        by the sender's intersection (``decomposition.spec_slices``).
-        Two per-axis transposes cannot do this when a dim's shards nest
-        (pencil y: Py-major, then Pz).  ``reshard_bytes`` counts what
-        left this rank."""
+        by the sender's intersection (``decomposition.spec_slices``);
+        where the source is replicated, only the lowest rank of each
+        replica set sends.  Two per-axis transposes cannot do this when a
+        dim's shards nest (pencil y: Py-major, then Pz).
+        ``reshard_bytes`` counts what left this rank.
+
+        Differentiable: the gradient is the reshard back.  A replicated
+        block stands for one global array, as in the reference: the
+        gradient of a replicated destination is read from one replica
+        (all replicas must hold the same gradient), and a replicated
+        source gets the gradient on every replica."""
+        return _Move.apply(blk, self, tuple(shape), tuple(src_spec),
+                           tuple(dst_spec), ())
+
+    def mirror(self, blk: torch.Tensor, shape: Sequence[int], spec,
+               dims: Sequence[int]) -> torch.Tensor:
+        """This rank's block, laid out by ``spec``, of the global array
+        ``shape`` with each trailing dim in ``dims`` (negative indices)
+        read backwards by k -> (-k) mod N (``packing.negate_freq``): a
+        reshard of the mirrored block, never a gather.  Each rank sends
+        every rank the part of its block that the mirror moves into that
+        rank's block.  Differentiable, as :meth:`reshard`."""
+        return _Move.apply(blk, self, tuple(shape), tuple(spec), tuple(spec),
+                           tuple(sorted(d % len(spec) for d in dims)))
+
+    def _move(self, blk: torch.Tensor, shape: tuple, src_spec: tuple,
+              dst_spec: tuple, negate: tuple = ()) -> torch.Tensor:
+        """The all-to-all of :meth:`reshard` and :meth:`mirror`."""
         nd = len(src_spec)
         lead = tuple(blk.shape[:blk.ndim - nd])
+        grid = tuple(shape[len(shape) - nd:])
         sizes = self.shape
         coords = self.rank_coords()
         src = [spec_slices(src_spec, shape, sizes, c) for c in coords]
         dst = [spec_slices(dst_spec, shape, sizes, c) for c in coords]
+        first = {}
+        for r, box in enumerate(src):
+            first.setdefault(tuple((b.start, b.stop) for b in box), r)
+        canon = [first[tuple((b.start, b.stop) for b in box)] == r
+                 for r, box in enumerate(src)]
         me = dist.get_rank()
         want = tuple(s.stop - s.start for s in src[me])
         if tuple(blk.shape[blk.ndim - nd:]) != want:
             raise ValueError(f"block {tuple(blk.shape)} is not this rank's "
                              f"{want} block of {tuple(shape)}")
 
-        def meet(a, b):
-            out = tuple(slice(max(x.start, y.start), min(x.stop, y.stop))
-                        for x, y in zip(a, b))
-            return None if any(s.start >= s.stop for s in out) else out
+        def link(s, d):
+            """Per dim (selection in d's block, selection in s's block) of
+            what source rank s gives destination rank d, or None."""
+            if not canon[s]:
+                return None
+            out = []
+            for i, (a, b) in enumerate(zip(src[s], dst[d])):
+                if i in negate:
+                    k = torch.arange(b.start, b.stop)
+                    m = (-k) % grid[i]
+                    keep = (m >= a.start) & (m < a.stop)
+                    if not bool(keep.any()):
+                        return None
+                    out.append((k[keep] - b.start, m[keep] - a.start))
+                    continue
+                lo, hi = max(a.start, b.start), min(a.stop, b.stop)
+                if lo >= hi:
+                    return None
+                out.append((slice(lo - b.start, hi - b.start),
+                            slice(lo - a.start, hi - a.start)))
+            return out
 
-        def local(box, origin):
+        def index(sels, side):
+            sel = [p[side] for p in sels]
+            if not negate:
+                return (Ellipsis,) + tuple(sel)
             return (Ellipsis,) + tuple(
-                slice(s.start - o.start, s.stop - o.start)
-                for s, o in zip(box, origin))
+                (torch.arange(x.start, x.stop) if isinstance(x, slice) else x)
+                .to(blk.device).view([-1 if i == d else 1 for i in range(nd)])
+                for d, x in enumerate(sel))
 
-        def numel(box):
-            return math.prod(lead) * math.prod(s.stop - s.start for s in box)
+        def extent(sels):
+            return lead + tuple((x.stop - x.start) if isinstance(x, slice)
+                                else len(x) for x, _ in sels)
 
+        def count(sels):
+            return math.prod(extent(sels))
+
+        # data flows s -> d: read by the source side (1) of a link and
+        # placed by its destination side (0)
         sends, send_sizes = [], []
         for d in range(self.size):
-            box = meet(src[me], dst[d])
-            send_sizes.append(0 if box is None else numel(box))
-            if box is not None:
-                sends.append(blk[local(box, src[me])].reshape(-1))
+            sels = link(me, d)
+            send_sizes.append(0 if sels is None else count(sels))
+            if sels is not None:
+                sends.append(blk[index(sels, 1)].reshape(-1))
                 if d != me:
                     self.reshard_bytes += send_sizes[-1] * blk.element_size()
-        boxes = [meet(src[s], dst[me]) for s in range(self.size)]
-        recv_sizes = [0 if b is None else numel(b) for b in boxes]
+        ins = [link(s, me) for s in range(self.size)]
+        recv_sizes = [0 if sels is None else count(sels) for sels in ins]
         send = (torch.cat(sends) if sends else
                 torch.empty(0, dtype=blk.dtype, device=blk.device))
         recv = torch.empty(sum(recv_sizes), dtype=blk.dtype, device=blk.device)
@@ -246,12 +363,10 @@ class Mesh:
         out = torch.empty(lead + tuple(s.stop - s.start for s in dst[me]),
                           dtype=blk.dtype, device=blk.device)
         at = 0
-        for box, n in zip(boxes, recv_sizes):
-            if box is None:
+        for sels, n in zip(ins, recv_sizes):
+            if sels is None:
                 continue
-            piece = recv[at:at + n].reshape(
-                lead + tuple(s.stop - s.start for s in box))
-            out[local(box, dst[me])] = piece
+            out[index(sels, 0)] = recv[at:at + n].reshape(extent(sels))
             at += n
         return out
 
@@ -271,6 +386,23 @@ class Mesh:
         recvs = [(out, s) for s, d in perm if d == me]
         self.exchange(sends, recvs, axis).wait()
         return out
+
+
+class _Move(torch.autograd.Function):
+    """:meth:`Mesh.reshard`/:meth:`Mesh.mirror` under autograd: a copy of
+    elements between ranks, so its adjoint is the move back (the mirror
+    is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, blk, mesh, shape, src_spec, dst_spec, negate):
+        ctx.args = (mesh, shape, src_spec, dst_spec, negate)
+        return mesh._move(blk, shape, src_spec, dst_spec, negate)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, shape, src_spec, dst_spec, negate = ctx.args
+        return (mesh._move(g.contiguous(), shape, dst_spec, src_spec, negate),
+                None, None, None, None, None)
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],

@@ -25,8 +25,12 @@ natural / spectral, forward / from-spectral); ``describe()`` renders the
 same text as the reference, so both are held to the same goldens;
 ``repro_torch.real.pipeline`` builds the packed two-for-one real
 pipelines on the same IR with the stage ops below.  The executor runs
-pencil and slab; the cell regroup and folded axes are IR only in this
-package so far.
+every decomposition: the cell regroup and a folded mesh axis transpose
+over the folded axis's own process group (``Mesh.group``), with the
+fused all-to-all only — ring and pairwise stay single-axis, as
+``Decomposition.validate`` says.  ``repro_torch.grad.adjoint`` turns any
+schedule into its transpose, which this executor runs as the backward
+pass.
 """
 
 from __future__ import annotations

@@ -150,6 +150,19 @@ def call(fn, device: torch.device, *args) -> int:
         return fn(*args, _raw_stream(device.index))
 
 
+def memory(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its values in its memory: a lazy conjugate or negation
+    (``t.conj()``, ``t.conj().imag``; ``contiguous()`` keeps both bits)
+    is resolved into a copy, since a kernel reads ``data_ptr()`` as
+    stored.  Every wrapper passes its inputs through here before it
+    takes their addresses."""
+    if t.is_conj():
+        t = t.resolve_conj()
+    if t.is_neg():
+        t = t.resolve_neg()
+    return t
+
+
 def check(status: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a launcher."""
     if status != 0:

@@ -75,7 +75,7 @@ def fft4step_axis(x: torch.Tensor, axis: int, sign: int = -1) -> torch.Tensor:
         raise ValueError(f"fft4step runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.complex64:
         raise TypeError(f"fft4step takes complex64, got {x.dtype}")
-    x = x.contiguous()
+    x = _build.memory(x.contiguous())
     outer = math.prod(x.shape[:axis])
     inner = math.prod(x.shape[axis + 1:])
     # n2 == 1 reads no twiddles: any valid pointer will do

@@ -81,6 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _launch(q, k, v, causal, window, scale) -> torch.Tensor:
+    q, k, v = (_build.memory(t) for t in (q, k, v))
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"{NAME} runs on one cuda device; {what} is on "

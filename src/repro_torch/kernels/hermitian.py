@@ -87,6 +87,7 @@ def unpack_two_for_one(c: torch.Tensor, pair_axis: int) -> torch.Tensor:
         raise ValueError(f"two-for-one fold needs even n, got {n}")
     if c.device.type == "cpu":
         return unpack_two_for_one_plain(c, pair_axis)
+    c = _build.memory(c)
     _check_cuda(c, UNPACK)
     shape = list(c.shape)
     shape[pair_axis] *= 2
@@ -107,6 +108,7 @@ def hermitian_extend(s: torch.Tensor, pair_axis: int, n: int) -> torch.Tensor:
                          f"{pair_axis} to n={n}")
     if s.device.type == "cpu":
         return hermitian_extend_plain(s, pair_axis, n)
+    s = _build.memory(s)
     _check_cuda(s, EXTEND)
     shape = list(s.shape)
     shape[pair_axis] //= 2

@@ -60,6 +60,7 @@ def _like_aligned(x: torch.Tensor) -> torch.Tensor:
 
 def _launch(x: torch.Tensor, h: torch.Tensor, alpha: float, full: bool,
             count: str) -> torch.Tensor:
+    x, h = _build.memory(x), _build.memory(h)
     for t, what in ((x, "x"), (h, "h")):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{count} runs on one cuda device; {what} is on "

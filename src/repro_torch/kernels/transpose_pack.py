@@ -73,6 +73,7 @@ def rotate_block_rows(x: torch.Tensor, outer: int, p: int, unit: int,
         raise TypeError(f"rotate_blocks takes complex64, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("rotate_blocks takes a contiguous tensor")
+    x = _build.memory(x)
     y = torch.empty(x.numel(), dtype=x.dtype, device=x.device)
     src, dst = x.data_ptr(), y.data_ptr()
     fn = _build.function(NAME, "rotate_blocks_launch", _ARGTYPES)

@@ -11,8 +11,8 @@ Port of ``repro/real``.  Two strategies:
             run in the Hopper kernels of ``repro_torch.kernels.hermitian``
             under the ``"pallas"`` local impl.
   "embed"   cast real -> complex, run c2c, keep the non-redundant half
-            (``repro_torch.core.rfft``).  Meshless only in the port so
-            far; a distributed plan that resolves to it raises.
+            (``repro_torch.core.rfft``); every decomposition, cell
+            included.
 
 ``resolve_strategy`` picks between them ("auto") with the reference's
 rule and reasons.  Public entry points:
@@ -72,13 +72,22 @@ def local_rfft3d_packed(x: torch.Tensor, opts: Optional[FFTOptions] = None,
 
     Works for odd Nz too (the fold-free two-for-one keeps all Nh bins —
     there is no shard alignment to preserve on one device).
+    Differentiable: the backward runs the transposed pipeline.
     """
     if opts is None:
         opts = FFTOptions()
-    nx, ny, nz = x.shape[-3], x.shape[-2], x.shape[-1]
     reason = packed_local_reason(x.shape)
     if reason is not None:
         raise ValueError(f"packed r2c unsupported here: {reason}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        from repro_torch.grad import vjp
+        return vjp.Linear.apply(x, _LocalRfft(tuple(x.shape[-3:]), opts,
+                                              norm))
+    return _rfft_packed(x, opts, norm)
+
+
+def _rfft_packed(x, opts, norm):
+    nx, ny, nz = x.shape[-3], x.shape[-2], x.shape[-1]
     pair_axis = _choose_pair_axis(nx, ny)
     fold = nz % 2 == 0  # odd Nz has no Nyquist bin; carry all Nh bins
     c = packing.pack_two(x, pair_axis)
@@ -97,16 +106,59 @@ def local_rfft3d_packed(x: torch.Tensor, opts: Optional[FFTOptions] = None,
     return y if scale is None else y * scale
 
 
+class _LocalRfft:
+    """:func:`local_rfft3d_packed` as a linear plan (``grad.vjp.Linear``).
+    Its adjoint is the pipeline's unconjugated transpose on ``conj(g)``
+    (``grad/vjp.py``'s convention; the result is real): scale ->
+    plane-unfold transpose -> x, y FFTs -> unpack transpose -> z FFT ->
+    pack transpose, the FFTs with the forward's sign and, as an adjoint
+    schedule's, the per-stage impls in execution order."""
+
+    def __init__(self, shape, opts, norm):
+        self.shape, self.opts, self.norm = shape, opts, norm
+
+    def run(self, x):
+        return _rfft_packed(x, self.opts, self.norm)
+
+    def adjoint(self, g):
+        from repro_torch.grad import adjoint, vjp
+        (nx, ny, nz), opts = self.shape, self.opts
+        pair_axis = _choose_pair_axis(nx, ny)
+        fold = nz % 2 == 0
+        ct = vjp.conj(g)
+        scale = _norm_scale((nx, ny, nz), -1, self.norm)
+        ct = ct if scale is None else ct * scale
+        if fold:
+            ct = adjoint.unfold_dc_plane_t(ct)
+        for stage, ax in ((0, -3), (1, -2)):
+            ct = local_fft.fft_1d(ct, ax, -1, impl=opts.stage_impl(stage),
+                                  plan_cache=opts.plan_cache)
+        ct = adjoint.unpack_two_t(ct, pair_axis % ct.ndim, nz, fold)
+        ct = local_fft.fft_1d(ct, -1, -1, impl=opts.stage_impl(2),
+                              plan_cache=opts.plan_cache)
+        return adjoint.pack_two_t(ct, pair_axis % ct.ndim)
+
+
 def local_irfft3d_packed(y: torch.Tensor, nz: int,
                          opts: Optional[FFTOptions] = None,
                          norm: Optional[str] = None) -> torch.Tensor:
-    """Single-device packed c2r: (..., Nx, Ny, Nh) -> real (..., Nx, Ny, Nz)."""
+    """Single-device packed c2r: (..., Nx, Ny, Nh) -> real (..., Nx, Ny, Nz).
+    Differentiable: the backward runs the transposed pipeline."""
     if opts is None:
         opts = FFTOptions()
     nx, ny = y.shape[-3], y.shape[-2]
     reason = packed_local_reason((nx, ny, nz))
     if reason is not None:
         raise ValueError(f"packed c2r unsupported here: {reason}")
+    if torch.is_grad_enabled() and y.requires_grad:
+        from repro_torch.grad import vjp
+        return vjp.Linear.apply(y, _LocalIrfft(tuple(y.shape[-3:]), nz, opts,
+                                               norm))
+    return _irfft_packed(y, nz, opts, norm)
+
+
+def _irfft_packed(y, nz, opts, norm):
+    nx, ny = y.shape[-3], y.shape[-2]
     pair_axis = _choose_pair_axis(nx, ny)
     fold = nz % 2 == 0
     t = fold_dc_plane(y, nz) if fold else y
@@ -120,6 +172,36 @@ def local_irfft3d_packed(y: torch.Tensor, nz: int,
                          plan_cache=opts.plan_cache)
     x = packing.split_pairs(c, pair_axis)
     return x * _norm_scale((nx, ny, nz), +1, norm)
+
+
+class _LocalIrfft:
+    """:func:`local_irfft3d_packed` as a linear plan: its adjoint is the
+    transposed pipeline on the real ``g`` (scale -> split transpose -> z
+    FFT -> repack transpose -> y, x FFTs -> plane-fold transpose),
+    conjugated."""
+
+    def __init__(self, shape, nz, opts, norm):
+        self.shape, self.nz, self.opts, self.norm = shape, nz, opts, norm
+
+    def run(self, y):
+        return _irfft_packed(y, self.nz, self.opts, self.norm)
+
+    def adjoint(self, g):
+        from repro_torch.grad import adjoint, vjp
+        (nx, ny, nh), nz, opts = self.shape, self.nz, self.opts
+        pair_axis = _choose_pair_axis(nx, ny)
+        fold = nz % 2 == 0
+        ct = g * _norm_scale((nx, ny, nz), +1, self.norm)
+        ct = adjoint.split_pairs_t(ct, pair_axis % ct.ndim)
+        ct = local_fft.fft_1d(ct, -1, +1, impl=opts.stage_impl(0),
+                              plan_cache=opts.plan_cache)
+        ct = adjoint.repack_halves_t(ct, pair_axis % ct.ndim, nh, fold)
+        for stage, ax in ((1, -2), (2, -3)):
+            ct = local_fft.fft_1d(ct, ax, +1, impl=opts.stage_impl(stage),
+                                  plan_cache=opts.plan_cache)
+        if fold:
+            ct = adjoint.fold_dc_plane_t(ct, nz)
+        return vjp.conj(ct)
 
 
 def unsupported_reason(shape: Sequence[int], mesh, decomp,

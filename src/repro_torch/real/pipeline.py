@@ -20,9 +20,10 @@ same executor as the complex transform.  Layouts:
                 (Nx, Ny)-plane Hermitian reconstruction
                 (``unfold_dc_plane``) splits the folded DC/Nyquist plane.
 
-The reference runs these through the custom-VJP plans of
-``repro/grad/vjp.py`` (``packed_rfft_plan``, ``packed_rfft_folded_plan``,
-``packed_irfft_plan``); the port runs their primal bodies directly:
+The entry points run through the autograd plans of
+``repro_torch/grad/vjp.py`` (``packed_rfft_plan``,
+``packed_rfft_folded_plan``, ``packed_irfft_plan``), as the reference
+runs its custom-VJP plans; without grad each runs its primal body:
 
   forward   body -> reshard to the spectral layout -> unfold -> scale
             -> optional filter
@@ -44,12 +45,11 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.decomposition import Decomposition, _mesh_axis_sizes
 from repro_torch.core.distributed import FFTOptions, _norm_scale
 from repro_torch.core.schedule import (ExtraComm, PackTwo, RepackHalves,
-                                       Schedule, SpectralScale, SplitPairs,
-                                       Stage, UnpackTwo, layout_for)
+                                       Schedule, SplitPairs, Stage, UnpackTwo,
+                                       layout_for)
 from repro_torch.real import packing
 
 #: grid dim two real lines are paired along, per decomposition kind
@@ -247,10 +247,6 @@ def _plane_access(mesh, decomp: Decomposition, shape: Sequence[int]):
     return (lambda p: mesh.gather(p.contiguous(), plane, spec)), sl
 
 
-def _scaled(y: torch.Tensor, scale) -> torch.Tensor:
-    return y if scale is None else y * scale
-
-
 def global_grid(blk: torch.Tensor, mesh, decomp: Decomposition) -> tuple:
     """The global (Nx, Ny, N) a spectral-layout block is a shard of (the
     real input's and the half spectrum's layout alike)."""
@@ -271,8 +267,10 @@ def packed_rfft3d(x: torch.Tensor, mesh, decomp: Decomposition,
     ``fold_filter`` it is applied *before* the unfold, on the packed half
     spectrum inside the schedule — valid for filters with ``h(kz=0) ==
     h(kz=Nyquist)``, that plane real and 2-D-even.  Leading batch axes
-    ride through one schedule (the executor's ``off``).
+    ride through one schedule (the executor's ``off``).  Differentiable
+    in ``x`` and the filter through the plans of ``repro_torch.grad.vjp``.
     """
+    from repro_torch.grad import vjp
     if opts is None:
         opts = FFTOptions()
     if x.ndim < 3:
@@ -283,28 +281,21 @@ def packed_rfft3d(x: torch.Tensor, mesh, decomp: Decomposition,
         raise ValueError(f"packed r2c unsupported here: {reason}")
     scale = _norm_scale(shape, -1, norm)
     x = x.to(mesh.device)
-    cdtype = packing.complex_dtype_for(x.dtype)
-    sched = build_packed_forward(decomp)
-    nat = sched.layout_out.partition_spec()
-    spect = decomp.spectral_spec()
-    body_shape = shape[:2] + (shape[2] // 2,)
-    gather, sl = _plane_access(mesh, decomp, shape)
+    nbatch = x.ndim - 3
     if kspace_filter is not None and fold_filter:
         # folded epilogue: the filter's packed half spectrum, moved to the
         # body's output layout, multiplies the body's last block
+        cdtype = packing.complex_dtype_for(x.dtype)
+        nat = build_packed_forward(decomp).layout_out.partition_spec()
         hp = kspace_filter[..., :shape[2] // 2].to(mesh.device, cdtype)
-        hp = mesh.reshard(hp.contiguous(), body_shape, spect, nat)
-        body = schedule_lib.run_schedule(
-            x, sched.with_epilogue(SpectralScale()), opts, mesh,
-            operands={"filter": hp})
-        packed = mesh.reshard(body, body_shape, nat, spect)
-        return _scaled(unfold_dc_plane(packed, gather, sl), scale)
-    body = schedule_lib.run_schedule(x, sched, opts, mesh)
-    packed = mesh.reshard(body, body_shape, nat, spect)
-    y = _scaled(unfold_dc_plane(packed, gather, sl), scale)
+        hp = mesh.reshard(hp.contiguous(), shape[:2] + (shape[2] // 2,),
+                          decomp.spectral_spec(), nat)
+        plan = vjp.packed_rfft_folded_plan(mesh, decomp, opts, scale, nbatch,
+                                           hp.ndim - 3)
+        return plan(x, hp)
+    y = vjp.packed_rfft_plan(mesh, decomp, opts, scale, nbatch)(x)
     if kspace_filter is not None:
-        from repro_torch.kernels import spectral_scale as ss
-        y = ss.spectral_scale(y, kspace_filter.to(y.device, y.dtype))
+        y = vjp.spectral_scale(y, kspace_filter.to(y.device, y.dtype))
     return y
 
 
@@ -313,7 +304,9 @@ def packed_irfft3d(y: torch.Tensor, nz: int, mesh, decomp: Decomposition,
                    norm: Optional[str] = None) -> torch.Tensor:
     """Distributed packed c2r: this rank's spectral-layout block of the
     (..., Nx, Ny, Nz//2 + 1) spectrum -> its block of the real
-    (..., Nx, Ny, Nz) field in the same layout."""
+    (..., Nx, Ny, Nz) field in the same layout.  Differentiable through
+    ``repro_torch.grad.vjp.packed_irfft_plan``."""
+    from repro_torch.grad import vjp
     if opts is None:
         opts = FFTOptions()
     if y.ndim < 3:
@@ -323,11 +316,6 @@ def packed_irfft3d(y: torch.Tensor, nz: int, mesh, decomp: Decomposition,
     reason = packed_unsupported_reason(shape, decomp, mesh, opts)
     if reason is not None:
         raise ValueError(f"packed c2r unsupported here: {reason}")
-    sched = build_packed_inverse(decomp, nz)
-    nat = sched.layout_in.partition_spec()
-    spect = decomp.spectral_spec()
-    gather, sl = _plane_access(mesh, decomp, shape)
-    packed = fold_dc_plane(y.to(mesh.device), nz, gather, sl)
-    body_in = mesh.reshard(packed.contiguous(), (nx, ny, nz // 2), spect, nat)
-    x = schedule_lib.run_schedule(body_in, sched, opts, mesh)
-    return _scaled(x, _norm_scale(shape, +1, norm))
+    plan = vjp.packed_irfft_plan(mesh, decomp, nz, opts,
+                                 _norm_scale(shape, +1, norm), y.ndim - 3)
+    return plan(y.to(mesh.device))

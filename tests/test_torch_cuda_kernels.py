@@ -221,6 +221,113 @@ def test_croft3d_r2c_meshless_runs_the_kernels(cuda_device):
     assert u.shape == x.shape and torch.isfinite(u).all()
 
 
+def _view_cases(dev):
+    """Per wrapper: (launch count, its call on lazy views, its plain version
+    on the same values in memory, tolerance relative to max|want|)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def c(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, device=dev,
+                           generator=gen)
+    x3, cc, s = c(4, 64, 8), c(3, 2, 64), c(3, 4, 32)
+    x2, h2, hb, flat = c(6, 128), c(6, 128), c(128), c(2 * 4 * 64)
+    q = torch.randn(1, 64, 2, 64, device=dev, generator=gen)
+
+    def neg(t):
+        # t's values behind a lazy negation
+        return torch.complex(torch.zeros_like(t), -t).conj().imag
+
+    def mem(t):
+        return t.conj().resolve_conj()
+    return {
+        "fft4step_axis": (
+            fft_matmul.NAME, lambda: fft_matmul.fft4step_axis(x3.conj(), 1),
+            lambda: fft_matmul.fft4step_axis_plain(mem(x3), 1), KERNEL_TOL),
+        "unpack_two_for_one": (
+            hermitian.UNPACK, lambda: hermitian.unpack_two_for_one(
+                cc.conj(), 1),
+            lambda: hermitian.unpack_two_for_one_plain(mem(cc), 1), HERM_TOL),
+        "hermitian_extend": (
+            hermitian.EXTEND, lambda: hermitian.hermitian_extend(
+                s.conj(), 1, 64),
+            lambda: hermitian.hermitian_extend_plain(mem(s), 1, 64), HERM_TOL),
+        "spectral_scale_planes": (
+            spectral_scale.BROADCAST,
+            lambda: spectral_scale.spectral_scale_planes(x2.conj(), hb.conj(),
+                                                         0.5),
+            lambda: spectral_scale.spectral_scale_plain(mem(x2), mem(hb), 0.5),
+            SCALE_TOL),
+        "spectral_scale_planes_full": (
+            spectral_scale.FULL,
+            lambda: spectral_scale.spectral_scale_planes_full(
+                x2.conj(), h2.conj(), 0.5),
+            lambda: spectral_scale.spectral_scale_plain(mem(x2), mem(h2), 0.5),
+            SCALE_TOL),
+        "rotate_block_rows": (
+            tp.NAME, lambda: tp.rotate_block_rows(flat.conj(), 2, 4, 64, 1),
+            lambda: tp.rotate_block_rows_plain(mem(flat), 2, 4, 64, 1), 0.0),
+        "flash_attention": (
+            flash_attention.NAME, lambda: flash_attention.flash_attention(
+                neg(q), neg(q), neg(q)),
+            lambda: flash_attention.flash_attention_plain(q, q, q), ATTN_TOL),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fft4step_axis", "unpack_two_for_one",
+                                  "hermitian_extend", "spectral_scale_planes",
+                                  "spectral_scale_planes_full",
+                                  "rotate_block_rows", "flash_attention"])
+def test_wrappers_read_conj_and_neg_views(cuda_device, name):
+    """A lazy conjugate (or negation) reaches no kernel as raw memory:
+    each wrapper, given ``x.conj()``, launches its kernel and agrees with
+    the plain version on the conjugated values."""
+    count, call, plain, tol = _view_cases(cuda_device)[name]
+    got = _launched(count, call)
+    want = plain()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_croft3d_backward_runs_the_kernels(cuda_device):
+    """The meshless backward passes run the kernels: three ``fft4step``
+    launches for the c2c adjoint, and for the packed r2c filtered one the
+    full-shape scale twice and three FFTs, each gradient within 1e-4 of
+    ``torch.fft`` autograd."""
+    from repro_torch.core import Croft3D, FFTOptions
+    from repro_torch.kernels import reset_launch_counts
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(32, 16, 64, dtype=torch.complex64, device=cuda_device,
+                    generator=gen).requires_grad_()
+    plan = Croft3D((32, 16, 64), opts=FFTOptions(local_impl="pallas"))
+    y = plan.forward(x)
+    reset_launch_counts()
+    (y.abs() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts().get(fft_matmul.NAME, 0) == 3
+    assert (x.grad - 2 * x.numel() * x.detach()).abs().max().item() < \
+        1e-4 * x.grad.abs().max().item()
+    rplan = Croft3D((32, 16, 64), problem="r2c",
+                    opts=FFTOptions(local_impl="pallas"))
+    xr = torch.randn(32, 16, 64, device=cuda_device,
+                     generator=gen).requires_grad_()
+    h = torch.randn(*rplan.spectrum_shape, dtype=torch.complex64,
+                    device=cuda_device, generator=gen).requires_grad_()
+    y = rplan.forward_filtered(xr, h)
+    reset_launch_counts()
+    (y.abs() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts.get(spectral_scale.FULL, 0) >= 2
+    assert counts.get(fft_matmul.NAME, 0) == 3
+    x2 = xr.detach().clone().requires_grad_()
+    h2 = h.detach().clone().requires_grad_()
+    (torch.fft.rfftn(x2) * h2).abs().pow(2).sum().backward()
+    for got, want in ((xr.grad, x2.grad), (h.grad, h2.grad)):
+        assert (got - want).abs().max().item() < \
+            1e-4 * want.abs().max().item()
+
+
 def _attention_close(got, want) -> bool:
     """Every element within ATTN_TOL (float32) or ATTN_BF16_REL of its
     value plus ATTN_TOL (bfloat16)."""

@@ -22,13 +22,14 @@ import pytest
 import torch
 
 from conftest import SRC, run_multidevice
-from repro_torch.core import Croft3D, Decomposition, FFTOptions, rfft
+from repro_torch.core import Croft3D, Decomposition, FFTOptions
 
 N = 16
 KINDS = {"pencil": ((2, 2), ("data", "model")), "slab": ((4,), ("p",))}
 TRANSFORMS = ("forward", "inverse", "filtered", "folded", "c2c_filtered")
 REL_TOL = 1e-5   # tests/test_real_fft.py:338
 RT_TOL = 1e-4    # tests/test_real_fft.py:339
+RFFT_TOL = 5e-5  # tests/test_real_fft.py:160
 
 REFERENCE = """
 import numpy as np, jax, jax.numpy as jnp
@@ -142,11 +143,18 @@ for kind, (sizes, names) in %r.items():
                         gather=bool(torch.equal(plane, t(g[..., 0]))),
                         bytes=mesh.reshard_bytes))
     try:
-        Croft3D((N, N, N), mesh, dec, problem="r2c", strategy="embed")
-        embed = "ran"
+        eplan = Croft3D((N, N, N), mesh, dec, FFTOptions(local_impl="pallas"),
+                        problem="r2c", strategy="embed")
+        xl = t(x[eplan.input_sharding])
+        ye = eplan.forward(xl)
+        want = np.fft.rfftn(x)
+        records.append(dict(
+            kind=kind, transform="embed", raised="ran",
+            err=float(np.abs(ye.numpy() - want[eplan.output_sharding]).max()
+                      / np.abs(want).max()),
+            rt=float((eplan.inverse(ye) - xl).abs().max())))
     except NotImplementedError as e:
-        embed = str(e)
-    records.append(dict(kind=kind, transform="embed", raised=embed))
+        records.append(dict(kind=kind, transform="embed", raised=str(e)))
 dist.destroy_process_group()
 with open(f"{out}/rank{rank}.json", "w") as f:
     json.dump(records, f)
@@ -232,8 +240,13 @@ def test_reshard_and_gather_round_trip_exactly(port_records, kind):
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_distributed_embed_plan_raises(port_records, kind):
-    for r in _records(port_records, kind, "embed"):
-        assert "not ported" in r["raised"] and "ROADMAP.md" in r["raised"]
+    """The distributed embed plan no longer raises: it runs, matches
+    ``numpy.fft.rfftn`` (tests/test_real_fft.py:160) and round-trips."""
+    runs = _records(port_records, kind, "embed")
+    assert len(runs) == 4
+    for r in runs:
+        assert r["raised"] == "ran", r
+        assert r["err"] < RFFT_TOL and r["rt"] < RT_TOL, r
 
 
 class _FakeMesh:
@@ -245,17 +258,18 @@ class _FakeMesh:
 
 
 def test_embed_resolution_raises_without_running():
-    """A distributed plan that resolves to the embedding (auto on a cell
-    decomposition, or asked for) raises NotImplementedError before any
-    collective, and never falls back to running packed."""
+    """A distributed r2c plan that resolves to the embedding (auto on a
+    cell decomposition, or asked for) resolves when it is built, before
+    any collective, and never falls back to packed; asking for packed
+    where it cannot run raises with the reason."""
     mesh = _FakeMesh({"a": 2, "b": 2, "c": 2})
     cell = Decomposition("cell", ("a", "b", "c"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Croft3D((8, 8, 8), mesh, cell, problem="r2c")
+    plan = Croft3D((8, 8, 8), mesh, cell, problem="r2c")
+    assert plan.strategy == "embed"
+    # cell keeps x and y sharded and replicates the z-local half spectrum
+    assert plan.output_sharding == (slice(0, 4), slice(0, 4), slice(0, 5))
+    with pytest.raises(ValueError, match="pencil and slab"):
+        Croft3D((8, 8, 8), mesh, cell, problem="r2c", strategy="packed")
     pencil = Decomposition("pencil", ("a", "b"))
-    with pytest.raises(NotImplementedError, match="distributed embed"):
-        rfft.rfft3d(torch.ones(8, 4, 8), _FakeMesh({"a": 2, "b": 2}), pencil,
-                    strategy="embed")
-    with pytest.raises(NotImplementedError, match="distributed embed"):
-        rfft.irfft3d(torch.ones(4, 4, 5, dtype=torch.complex64), 8,
-                     _FakeMesh({"a": 2, "b": 2}), pencil, strategy="embed")
+    assert Croft3D((8, 8, 8), _FakeMesh({"a": 2, "b": 2}), pencil,
+                   problem="r2c", strategy="embed").strategy == "embed"

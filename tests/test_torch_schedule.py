@@ -229,11 +229,11 @@ def test_flops_model_matches_reference_formula(kind, layout):
 
 
 def test_croft3d_rejects_unported_and_bad_problems():
-    # r2c runs meshless and packed; distributed embed is not ported yet
+    # r2c runs meshless and packed, and distributed by embedding (cell)
     assert Croft3D((8, 8, 8), problem="r2c", device="cpu").strategy == "packed"
-    with pytest.raises(NotImplementedError, match="distributed embed"):
-        Croft3D((8, 8, 8), _FakeMesh({"a": 2, "b": 2, "c": 2}),
-                Decomposition("cell", ("a", "b", "c")), problem="r2c")
+    assert Croft3D((8, 8, 8), _FakeMesh({"a": 2, "b": 2, "c": 2}),
+                   Decomposition("cell", ("a", "b", "c")),
+                   problem="r2c").strategy == "embed"
     with pytest.raises(ValueError, match="problem"):
         Croft3D((8, 8, 8), problem="c2c_grad", device="cpu")
     with pytest.raises(ValueError, match="Decomposition"):
