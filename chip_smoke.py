@@ -91,12 +91,38 @@ into ``build/``, then runs:
    forward, ``spectral_scale_full`` twice and ``fft4step`` three times
    in the backward); wall times, each direction's launches, peak memory
    and a profiled forward and forward+backward by kernel;
-6. one JSON line on the kernels, the card's name and power limit, and
+6. the tuner (``repro_torch.tuning``): (6a) ``mode="model"`` at full
+   width, no execution, on croft-1024 and croft-4096 over
+   ``{data: 2, model: 2}`` and ``{data: 2, model: 4}``, c2c, r2c and
+   c2c_grad, the option space and (c2c) the schedule search, each pick
+   with its modeled us, candidate count and host ms; then one timed call
+   of each local 1-D FFT implementation at (2^20, 1024), the cost
+   model's priors; (6b) ``mode="measure"`` on phase 3's 4 gloo ranks at
+   256^3 (pencil 2x2 mesh): c2c top 4, r2c top 2 and c2c_grad top 2,
+   each plus the default, every rank picking the same winner (an
+   all-gather of its plan key), each race's table (label, modeled us,
+   the slowest rank's ms), no candidate dropped (``tune_measure_failures``
+   stays 0); then ``measure_candidate`` of the c2c winner
+   with ``local_impl="pallas"`` (``fft4step``), of the model's best ring
+   candidate (``rotate_blocks``) and of its best packed r2c candidate
+   with ``pallas`` (``unpack_two_for_one``), each beside the winner's
+   time; (6c) the c2c race's wisdom, written by rank 0, rebuilt with
+   ``Croft3D(tune="wisdom")`` on every rank with no new measurement: its
+   forward against ``torch.fft.fftn``'s slice (5e-4 * max|ref|), its
+   round trip (< 1e-4), its counted collectives equal to
+   ``predicted_collectives`` and its counted bytes within 5 % of
+   ``comm_bytes_model()`` (of the (P-1)/P a ring or pairwise stage
+   sends), and ``forward_filtered_batched`` at B = 2 bitwise equal to
+   two ``forward_filtered`` calls (``spectral_scale_full``); the r2c
+   race's wisdom plan against ``torch.fft.rfftn``'s slice (5e-5 *
+   max|ref|), and one gradient of the c2c_grad race's wisdom plan
+   against Parseval's 2 N x (1e-3 of max|ref|); phase 6's own seconds;
+7. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
-3b, 3g, 3c, 4, 5; in 3g and 5 before each backward too) and read just
-after it.
+3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, and 6c; in
+3g and 5 before each backward too) and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -117,8 +143,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.configs.croft_fft import croft_1024  # noqa: E402
+from repro_torch.launch.roofline import (HBM_BW, PEAK_FLOPS,  # noqa: E402
+                                         PEAK_FLOPS_FP32)
+
 SEED = 0
-FULL = 1024            # croft-1024, src/repro/configs/croft_fft.py
+FULL = croft_1024().grid[0]  # 1024: the paper's croft-1024 grid
 DIST = 256             # phase-3 grid: 4 ranks share one card's memory and wire
 RANKS = 4
 CELL_RANKS = 8         # phase 3c: a 2x2x2 mesh on the one card
@@ -145,9 +175,8 @@ ATTN_TOL = 5e-5       # tests/test_kernels_fft.py:103 (float32, absolute)
 # in float32 and round the result to bf16 at the end, each within 2**-8
 # of the value, so two ulps of the value are room to spare
 ATTN_BF16_REL = 2.0 ** -6
-HBM_BYTES_S = 3.35e12  # H100 SXM device memory
-FP32_FLOP_S = 67e12    # H100 SXM FP32 outside the tensor cores
-BF16_FLOP_S = 989e12   # H100 SXM bf16 dense tensor cores
+# the H100 SXM's device memory rate, FP32 and bf16 dense peaks
+HBM_BYTES_S, FP32_FLOP_S, BF16_FLOP_S = HBM_BW, PEAK_FLOPS_FP32, PEAK_FLOPS
 TIMEOUT_S = 900
 
 
@@ -1735,6 +1764,326 @@ def phase_serve(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 6: the tuner on the card
+# ---------------------------------------------------------------------------
+
+TUNE_MESHES = ({"data": 2, "model": 2}, {"data": 2, "model": 4})
+TUNE_RACES = (("c2c", 4), ("r2c", 2), ("c2c_grad", 2))
+BYTES_TOL = 0.05       # tests/test_roofline.py:136
+IMPL_ROWS = 1 << 20    # the local-impl timing shape (2^20, 1024)
+
+
+def phase_tune_model(dev) -> None:
+    """6a: ``mode="model"`` at full width (no execution) on the paper's
+    croft-1024 and croft-4096 grids, then one timed call of every local
+    1-D FFT implementation at (2^20, 1024), the priors' source."""
+    import torch
+    from repro_torch.configs.croft_fft import croft_1024, croft_4096
+    from repro_torch.core import local_fft
+    from repro_torch.tuning import planner
+    for cfg in (croft_1024(), croft_4096()):
+        for sizes in TUNE_MESHES:
+            for problem, _ in TUNE_RACES:
+                searches = (("options", "schedule") if problem != "r2c"
+                            else ("options",))
+                for search in searches:
+                    t0 = time.perf_counter()
+                    r = planner.tune(cfg.grid, axis_sizes=sizes, mode="model",
+                                     problem=problem, search=search,
+                                     save=False)
+                    host = (time.perf_counter() - t0) * 1e3
+                    print(f"[6a] {cfg.name} {sizes} {problem}/{search}: "
+                          f"{r.candidate().label}, {r.model_s * 1e6:.1f} us "
+                          f"modeled, {len(r.ranked)} candidates, {host:.0f} "
+                          "ms host", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn(IMPL_ROWS, FULL, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    flops = 5.0 * FULL * math.log2(FULL) * IMPL_ROWS
+    for impl in ("pallas", "xla", "matmul", "stockham"):
+        t = time_ms(lambda: local_fft.fft_1d(x, -1, -1, impl=impl), reps=3,
+                    warmup=1)
+        torch.cuda.empty_cache()
+        print(f"[6a] local_impl {impl} at ({IMPL_ROWS}, {FULL}): {t:.3f} ms, "
+              f"{flops / (t * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{flops / (t * 1e-3) / FP32_FLOP_S:.4f} of the FP32 peak",
+              flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+
+def sent_bytes_model(plan) -> float:
+    """``comm_bytes_model()`` less the piece a ring or pairwise stage
+    keeps: such a stage sends (P-1)/P of its volume, an all-to-all all of
+    it (what ``Mesh.counting`` counts)."""
+    from repro_torch.core.schedule import stage_transpose_impl
+    sched = plan._forward_schedule()
+    events = sched.comm_events(plan.shape, plan.mesh.shape,
+                               plan.dtype.itemsize)
+    kept = sum(ev["bytes"] / ev["comm_size"] for (_, st), ev
+               in zip(sched.comm_stages(), events)
+               if stage_transpose_impl(st, plan.opts) != "alltoall")
+    return plan.comm_bytes_model() - kept
+
+
+def _race_rows(r, dflt, dflt_model_s: float) -> list:
+    """[label, modeled us, measured ms] of every raced candidate; the
+    default may lie outside the enumerated space (a packed r2c plan in
+    the natural layout), and is then priced here."""
+    return [[row["label"], row.get("model_s", dflt_model_s
+                                   if row["label"] == dflt.label
+                                   else float("nan")) * 1e6,
+             row["measured_s"] * 1e3]
+            for row in r.ranked if "measured_s" in row]
+
+
+def worker_tune(rank: int, port: int, wdir: str) -> None:
+    """One rank of phases 6b and 6c; prints its results as a JSON line."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tuning
+    from repro_torch.core import Croft3D, make_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import metrics
+    from repro_torch.tuning import cost_model
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=RANKS)
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    shape = (DIST,) * 3
+    wpath = os.path.join(wdir, "wisdom.json")
+    res = {"rank": rank, "races": {}, "kernels": {}}
+
+    def agreed(key: str) -> bool:
+        keys = [None] * RANKS
+        dist.all_gather_object(keys, key)
+        return len(set(keys)) == 1
+
+    # 6b: the races, every rank timing its block, the slowest rank's time
+    # deciding
+    reg = metrics.get_registry()
+    winners = {}
+    for problem, top_k in TUNE_RACES:
+        failures = reg.counter("tune_measure_failures").value
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        r = tuning.tune(shape, mesh, mode="measure", problem=problem,
+                        top_k=top_k, wisdom_path=wpath)
+        host = time.perf_counter() - t0
+        winners[problem] = r
+        dflt = tuning.default_candidate(shape, mesh.shape, problem=problem)
+        res["races"][problem] = dict(
+            winner=r.candidate().label, key=r.key, agreed=agreed(
+                r.candidate().plan_key),
+            model_us=r.model_s * 1e6, measured_ms=r.measured_s * 1e3,
+            default=dflt.label, rows=_race_rows(r, dflt, cost_model.analytic_cost(
+                shape, dflt, mesh.shape).total_s), host_s=host,
+            launches=launch_counts(),
+            dropped=reg.counter("tune_measure_failures").value - failures)
+
+    # the kernels in the tuner's race: measure_candidate on the live mesh
+    def timed(tag, cand):
+        reset_launch_counts()
+        t = tuning.measure_candidate(shape, mesh, cand)
+        check(t is not None, f"phase 6b {tag} failed to build or run")
+        res["kernels"][tag] = dict(label=cand.label, ms=t * 1e3,
+                                   launches=launch_counts())
+
+    def pallas(cand):
+        return dataclasses.replace(cand, opts=dataclasses.replace(
+            cand.opts, local_impl="pallas"))
+    timed("c2c winner, local_impl=pallas", pallas(winners["c2c"].candidate()))
+    ranked = cost_model.rank_candidates(
+        shape, tuning.enumerate_candidates(shape, mesh.shape), mesh.shape)
+    ring = next(c for c, _ in ranked if c.opts.transpose_impl == "ring")
+    timed("c2c best ring", ring)
+    ranked = cost_model.rank_candidates(
+        shape, tuning.enumerate_candidates(shape, mesh.shape, problem="r2c"),
+        mesh.shape)
+    packed = next(c for c, _ in ranked if c.strategy == "packed")
+    timed("r2c best packed, local_impl=pallas", pallas(packed))
+
+    # 6c: the c2c race's wisdom, rebuilt on every rank with no new run
+    runs = reg.counter("tune_measure_runs").value
+    reset_launch_counts()
+    plan = Croft3D(shape, mesh, tune="wisdom", wisdom_path=wpath)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    x = torch.randn(*shape, dtype=torch.complex64, device=dev, generator=gen)
+    ref = torch.fft.fftn(x)        # oracle only
+    xl = x[plan.input_sharding].contiguous()
+    y, t_fwd = _wall(lambda: plan.forward(xl))
+    xb = plan.inverse(y)
+    count = cost_model.counted_collectives(plan)
+    pred = cost_model.predicted_collectives(plan._forward_schedule(), shape,
+                                            mesh.shape, plan.opts)
+    hb = torch.randn((2,) + tuple(y.shape), dtype=torch.complex64,
+                     device=dev, generator=gen)
+    xs = torch.randn((2,) + tuple(xl.shape), dtype=torch.complex64,
+                     device=dev, generator=gen)
+    yb = plan.forward_filtered_batched(xs, hb)
+    ys = torch.stack([plan.forward_filtered(xs[i], hb[i]) for i in range(2)])
+    res["wisdom"] = dict(
+        source=plan.tune_result.source, plan=plan.candidate().label,
+        same=plan.candidate().plan_key
+        == winners["c2c"].candidate().plan_key,
+        new_runs=reg.counter("tune_measure_runs").value - runs,
+        err=(y - ref[plan.output_sharding]).abs().max().item()
+        / ref.abs().max().item(),
+        rt=(xb - xl).abs().max().item(), fwd_ms=t_fwd,
+        counted={k: e["count"] for k, e in count["collectives"].items()
+                 if e["count"]},
+        predicted={k: n for k, n in pred.items() if n},
+        bytes=count["collective_bytes"], model_bytes=plan.comm_bytes_model(),
+        sent_bytes=sent_bytes_model(plan), batched_bitwise=bool(torch.equal(yb, ys)),
+        batched_diff=(yb - ys).abs().max().item(),
+        launches=launch_counts())
+    del x, ref, y, xb, hb, xs, yb, ys
+
+    # 6c: the r2c race's wisdom against rfftn, and one gradient of the
+    # c2c_grad race's wisdom against Parseval's 2 N x
+    runs = reg.counter("tune_measure_runs").value
+    reset_launch_counts()
+    rplan = Croft3D(shape, mesh, tune="wisdom", problem="r2c",
+                    wisdom_path=wpath)
+    xr = torch.randn(*shape, device=dev, generator=gen)
+    ref = torch.fft.rfftn(xr)      # oracle only
+    y = rplan.forward(xr[rplan.input_sharding].contiguous())
+    res["wisdom_r2c"] = dict(
+        plan=rplan.candidate().label, source=rplan.tune_result.source,
+        same=rplan.candidate().plan_key
+        == winners["r2c"].candidate().plan_key,
+        err=(y - ref[rplan.output_sharding]).abs().max().item()
+        / ref.abs().max().item())
+    gplan = Croft3D(shape, mesh, tune="wisdom", grad=True, wisdom_path=wpath)
+    xg = xl.clone().requires_grad_()
+    _sq_norm(gplan.forward(xg)).backward()
+    want = 2 * math.prod(shape) * xl
+    res["wisdom_grad"] = dict(
+        plan=gplan.candidate().label, source=gplan.tune_result.source,
+        same=(gplan.decomp, gplan.opts)
+        == (winners["c2c_grad"].decomp, winners["c2c_grad"].opts),
+        err=(xg.grad - want).abs().max().item() / want.abs().max().item(),
+        new_runs=reg.counter("tune_measure_runs").value - runs,
+        launches=launch_counts())
+    print("RESULT_TUNE " + json.dumps(res), flush=True)
+    dist.destroy_process_group()
+
+
+def phase_tune(dev) -> dict:
+    """Phase 6: 6a here, then 6b/6c on 4 gloo ranks of the one card."""
+    import tempfile
+    t0 = time.time()
+    phase_tune_model(dev)
+    port = _free_port()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wdir:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker-tune",
+             str(r), str(port), wdir], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
+        outs = []
+        try:
+            deadline = time.time() + TIMEOUT_S
+            for p in procs:
+                out, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.time()))
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [l for l in out.splitlines() if l.startswith("RESULT_TUNE ")]
+        if p.returncode != 0 or not lines:
+            print(out[-4000:], file=sys.stderr)
+            raise SystemExit(f"FAILED: phase 6 rank {r} exited "
+                             f"{p.returncode}")
+        results.append(json.loads(lines[-1][len("RESULT_TUNE "):]))
+    counts = Counter()
+    for res in results:
+        for race in res["races"].values():
+            counts.update(race["launches"])
+        for k in res["kernels"].values():
+            counts.update(k["launches"])
+        counts.update(res["wisdom"]["launches"])
+        counts.update(res["wisdom_grad"]["launches"])
+    r0 = results[0]
+    for problem, race in r0["races"].items():
+        check(all(res["races"][problem]["agreed"] for res in results)
+              and len({res["races"][problem]["winner"] for res in results})
+              == 1, f"phase 6b {problem}: the ranks picked different plans")
+        check(all(res["races"][problem]["dropped"] == 0 for res in results),
+              f"phase 6b {problem}: a candidate failed to build or run")
+        print(f"[6b] {problem} race, {RANKS} ranks at {DIST}^3 (gloo, the "
+              f"slowest rank's wall): winner {race['winner']} "
+              f"{race['measured_ms']:.2f} ms measured, "
+              f"{race['model_us']:.1f} us modeled; default {race['default']};"
+              f" tune {race['host_s']:.1f} s host; launches per rank "
+              f"{race['launches']}", flush=True)
+        for label, model_us, ms in race["rows"]:
+            print(f"[6b]   {label:56s} {model_us:10.1f} us modeled "
+                  f"{ms:10.2f} ms measured", flush=True)
+    for tag, k in r0["kernels"].items():
+        print(f"[6b] measure_candidate {tag}: {k['label']} {k['ms']:.2f} ms "
+              f"(the c2c winner: {r0['races']['c2c']['measured_ms']:.2f} "
+              f"ms); launches per rank {k['launches']}", flush=True)
+    check(counts.get("fft4step", 0) > 0, "fft4step not launched in phase 6b")
+    check(counts.get("rotate_blocks", 0) > 0,
+          "rotate_blocks not launched in phase 6b")
+    check(counts.get("unpack_two_for_one", 0) > 0,
+          "unpack_two_for_one not launched in phase 6b")
+    for res in results:
+        w = res["wisdom"]
+        check(w["source"] == "wisdom" and w["same"] and w["new_runs"] == 0,
+              f"phase 6c rank {res['rank']}: wisdom did not rebuild the plan "
+              f"without measuring ({w})")
+        check(w["err"] < FFT3_TOL and w["rt"] < RT_TOL,
+              f"phase 6c rank {res['rank']}: err {w['err']} rt {w['rt']}")
+        check(w["counted"] == w["predicted"],
+              f"phase 6c rank {res['rank']}: collectives {w['counted']} != "
+              f"predicted {w['predicted']}")
+        check(abs(w["bytes"] - w["sent_bytes"])
+              <= BYTES_TOL * w["sent_bytes"],
+              f"phase 6c rank {res['rank']}: bytes {w['bytes']} vs model "
+              f"{w['sent_bytes']} sent of {w['model_bytes']}")
+        check(w["batched_bitwise"],
+              f"phase 6c rank {res['rank']}: forward_filtered_batched "
+              f"differs from two forward_filtered by {w['batched_diff']}")
+        wr, wg = res["wisdom_r2c"], res["wisdom_grad"]
+        check(wr["source"] == wg["source"] == "wisdom" and wr["same"]
+              and wg["same"] and wg["new_runs"] == 0,
+              f"phase 6c rank {res['rank']}: the r2c/c2c_grad wisdom did not "
+              f"rebuild the races' plans without measuring ({wr}, {wg})")
+        check(wr["err"] < RFFT_TOL,
+              f"phase 6c rank {res['rank']}: r2c wisdom plan err {wr['err']}")
+        check(wg["err"] < PARSEVAL_TOL,
+              f"phase 6c rank {res['rank']}: c2c_grad wisdom plan gradient "
+              f"err {wg['err']}")
+    w = r0["wisdom"]
+    print(f"[6c] wisdom plan {w['plan']} on every rank, no new measurement; "
+          f"forward {max(r['wisdom']['fwd_ms'] for r in results):.1f} ms, "
+          f"rel err {max(r['wisdom']['err'] for r in results):.3e}, round "
+          f"trip {max(r['wisdom']['rt'] for r in results):.3e}; collectives "
+          f"{w['counted']} = predicted, {w['bytes']:.0f} bytes a rank "
+          f"(model {w['sent_bytes']:.0f} sent of {w['model_bytes']:.0f}); "
+          f"forward_filtered_batched B=2 bitwise; launches per rank "
+          f"{w['launches']}", flush=True)
+    wr, wg = r0["wisdom_r2c"], r0["wisdom_grad"]
+    print(f"[6c] r2c wisdom plan {wr['plan']}: rel err "
+          f"{max(r['wisdom_r2c']['err'] for r in results):.3e} against rfftn;"
+          f" c2c_grad wisdom plan {wg['plan']}: gradient rel err "
+          f"{max(r['wisdom_grad']['err'] for r in results):.3e} against "
+          f"2 N x; launches per rank {wg['launches']}", flush=True)
+    check(counts.get("spectral_scale_full", 0) > 0,
+          "spectral_scale_full not launched in phase 6c")
+    print(f"[6] launches {dict(counts)}; phase 6 {time.time() - t0:.1f} s",
+          flush=True)
+    return dict(counts)
+
 
 def main() -> int:
     import torch
@@ -1757,7 +2106,7 @@ def main() -> int:
     timings.update(phase_attention_kernel(dev))
     phase_host_overhead(dev)
     paths = [phase_full(dev), phase_real_full(dev), *phase_distributed(),
-             phase_cell(), phase_serve(dev), phase_grad(dev)]
+             phase_cell(), phase_serve(dev), phase_grad(dev), phase_tune(dev)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
@@ -1804,5 +2153,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "--worker-cell":
         worker_cell(int(sys.argv[2]), int(sys.argv[3]))
+        sys.exit(0)
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker-tune":
+        worker_tune(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -16,6 +16,11 @@ forward; :func:`poisson_solve` is the spectral solver built on it.
 Every transform is differentiable: ``loss.backward()`` runs the adjoint
 schedule of the plan (``repro_torch.grad``), with a mesh on every rank
 — each rank must call ``backward()``.
+
+Autotuning: ``Croft3D.tuned(shape, mesh, mode=...)`` (or ``tune=`` on the
+constructor) lets ``repro_torch.tuning`` pick the plan, every rank the
+same one; ``schedule=`` runs a searched pipeline (a
+``tuning.candidates.ScheduleCandidate``) instead of a fixed builder's.
 """
 
 from __future__ import annotations
@@ -60,18 +65,72 @@ class Croft3D:
     device: Optional[object] = None
     #: r2c only: "packed" | "embed" | None (= auto); resolved in __post_init__
     strategy: Optional[str] = None
+    #: autotune mode ("wisdom" | "model" | "measure"); when set, the
+    #: planner overrides ``decomp``/``opts`` (see ``repro_torch.tuning``)
+    tune: Optional[str] = None
+    #: tune for a *training step*: the planner prices forward + adjoint
+    #: schedule (problem axis "c2c_grad"/"r2c_grad") instead of forward
+    #: only.  Transforms themselves are identical — gradients work on
+    #: every plan; this only changes which plan wins.
+    grad: bool = False
+    wisdom_path: Optional[str] = None
+    #: extra keyword arguments for ``tuning.tune`` (top_k, measure_iters, ...)
+    tune_kw: Optional[dict] = None
+    #: searched pipeline (``tuning.candidates.ScheduleCandidate``): when
+    #: set, forward/inverse run this explicit stage list (per-stage
+    #: transpose impls / K) instead of the fixed builders; ``decomp`` and
+    #: ``opts`` are taken from it.  c2c only.  Set directly, or by the
+    #: tune path when the planner's schedule search picks one.
+    schedule: Optional[object] = None
+    tune_result = None  # TuneResult when the planner picked the plan
 
     def __post_init__(self):
         if self.problem not in ("c2c", "r2c"):
+            hint = ("; grad-aware tuning is selected with grad=True "
+                    "(Croft3D.tuned(..., grad=True)), not a problem suffix"
+                    if str(self.problem).endswith("_grad") else "")
             raise ValueError(f"problem must be 'c2c' or 'r2c', got "
-                             f"{self.problem!r}")
+                             f"{self.problem!r}{hint}")
         self.shape = tuple(self.shape)
+        if self.tune is not None and self.mesh is None:
+            raise ValueError("tune= needs a mesh (single-device plans have "
+                             "nothing to tune)")
+        if self.tune is not None:
+            from repro_torch import tuning
+            tune_problem = self.problem + ("_grad" if self.grad else "")
+            result = tuning.tune(self.shape, self.mesh, mode=self.tune,
+                                 dtype=self.dtype, problem=tune_problem,
+                                 wisdom_path=self.wisdom_path,
+                                 **(self.tune_kw or {}))
+            self.decomp, self.opts = result.decomp, result.opts
+            if self.problem == "r2c":
+                self.strategy = result.strategy
+            self.schedule = result.schedule
+            self.tune_result = result
+        if self.schedule is not None:
+            if self.problem != "c2c":
+                raise ValueError("schedule= (a searched pipeline) plans "
+                                 "the c2c problem only")
+            if self.mesh is None:
+                raise ValueError("schedule= needs a mesh")
+            self.decomp, self.opts = self.schedule.decomp, self.schedule.opts
         if self.mesh is not None:
             if self.decomp is None:
                 raise ValueError("a mesh requires a Decomposition")
-            self.decomp.validate(self.shape, self.mesh,
-                                 self.opts.overlap_k,
-                                 self.opts.transpose_impl)
+            if self.schedule is not None:
+                # basic mesh/axis checks at the weakest fixed-builder
+                # settings, then the searched pipeline's own shape checks
+                # (its transpose orders chunk along other axes than the
+                # fixed pipelines, so the fixed K rules don't apply)
+                self.decomp.validate(self.shape, self.mesh, 1, "alltoall")
+                self.schedule.validate(self.shape, self.mesh.shape)
+                self._sched_fwd = self.schedule.build_schedule()
+                self._sched_inv = distributed.inverse_schedule(
+                    self._sched_fwd)
+            else:
+                self.decomp.validate(self.shape, self.mesh,
+                                     self.opts.overlap_k,
+                                     self.opts.transpose_impl)
             self.device = self.mesh.device
         else:
             self.device = resolve_device(self.device)
@@ -112,6 +171,13 @@ class Croft3D:
         return self.decomp.slices(shape or self.shape, self.mesh,
                                   self.mesh.coords, layout)
 
+    def _layout_slices(self, layout) -> tuple:
+        """This rank's index ranges of a searched schedule's layout (it
+        can end on layouts no fixed spec names, e.g. x sharded by the z
+        communicator)."""
+        return spec_slices(layout.partition_spec(), self.shape,
+                           self.mesh.shape, self.mesh.coords)
+
     @property
     def input_sharding(self) -> Optional[tuple]:
         """The global index ranges of this rank's input block (None when
@@ -119,6 +185,8 @@ class Croft3D:
         first, so the pipeline starts where the c2c pipeline ends."""
         if self.problem == "r2c" and self.strategy == "packed":
             return self._slices("spectral")
+        if self.schedule is not None:
+            return self._layout_slices(self._sched_fwd.layout_in)
         return self._slices("natural")
 
     @property
@@ -133,12 +201,29 @@ class Croft3D:
             from repro_torch.core.rfft import embed_spec
             return spec_slices(embed_spec(self.decomp), self.spectrum_shape,
                                self.mesh.shape, self.mesh.coords)
+        if self.schedule is not None:
+            return self._layout_slices(self._sched_fwd.layout_out)
         return self._slices(self.opts.output_layout)
+
+    def batched_sharding(self, which: str = "input") -> Optional[tuple]:
+        """``input_sharding``/``output_sharding`` widened with a leading
+        full batch axis (the block of a (B, ...) stack this rank holds)."""
+        base = (self.input_sharding if which == "input"
+                else self.output_sharding)
+        if base is None:
+            return None
+        return (slice(None),) + tuple(base)
 
     def local_shape(self) -> tuple[int, ...]:
         if self.mesh is None:
             return self.shape
         return self.decomp.local_shape(self.shape, self.mesh)
+
+    def local_input_shape(self) -> tuple[int, ...]:
+        """The shape of the block ``forward`` takes on this rank."""
+        if self.mesh is None:
+            return self.shape
+        return tuple(s.stop - s.start for s in self.input_sharding)
 
     def _check(self, x: torch.Tensor, sharding, shape) -> None:
         if self.mesh is None:
@@ -160,6 +245,9 @@ class Croft3D:
             return rfft.irfft3d(y, self.shape[-1], self.mesh, self.decomp,
                                 self.opts, strategy=self.strategy,
                                 device=self.device)
+        if self.schedule is not None:
+            return distributed.scheduled_fft3d(y, self.mesh, self._sched_inv,
+                                               self.opts, norm="backward")
         return distributed.ifft3d(y, self.mesh, self.decomp, self.opts,
                                   device=self.device)
 
@@ -174,6 +262,9 @@ class Croft3D:
         if fold:
             raise ValueError("fold=True is the packed r2c folded epilogue; "
                              "c2c filters are always fused in-schedule")
+        if self.schedule is not None:
+            return distributed.scheduled_fft3d(x, self.mesh, self._sched_fwd,
+                                               self.opts, kspace_filter=h)
         return distributed.fft3d(x, self.mesh, self.decomp, self.opts,
                                  device=self.device, kspace_filter=h)
 
@@ -209,6 +300,13 @@ class Croft3D:
         """``inverse`` over a (B, ...) spectrum stack."""
         return self.inverse(y)
 
+    def forward_filtered_batched(self, x: torch.Tensor,
+                                 h: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward_filtered` over (B, ...) field and filter stacks
+        (each field brings its own ``h``), through the same collectives as
+        one field."""
+        return self.forward_filtered(x, h)
+
     def release(self) -> None:
         """Drop the cached autograd plans (``repro_torch.grad.vjp``; the
         cache is shared by every plan and rebuilt on demand), and with
@@ -217,15 +315,57 @@ class Croft3D:
         from repro_torch.grad import vjp
         vjp.clear_plans()
 
+    # -- autotuning ----------------------------------------------------------
+    @classmethod
+    def tuned(cls, shape, mesh, *, mode: str = "model",
+              wisdom_path: Optional[str] = None, dtype=torch.complex64,
+              problem: str = "c2c", batch: int = 1, grad: bool = False,
+              **tune_kw) -> "Croft3D":
+        """Plan via the autotuner (``repro_torch.tuning``) instead of
+        hand-picked (decomp, opts); every rank of ``mesh`` calls it and
+        gets the same plan.
+
+        ``mode="model"`` is FFTW ESTIMATE (analytic, zero execution),
+        ``mode="measure"`` is PATIENT (times the top candidates on the
+        mesh, each the slowest rank's time), ``mode="wisdom"`` reuses a
+        stored plan from ``wisdom_path`` (or $CROFT_WISDOM).
+        ``problem="r2c"`` plans the real transform (the planner also
+        chooses the packed/embed strategy).  ``batch=B`` plans for B
+        stacked fields: the cost model scales volume terms by B,
+        ``mode="measure"`` times ``forward_batched`` over B fields, and
+        the wisdom key gains a ``|b{B}`` dimension.  ``grad=True`` prices
+        a *training step*: forward schedule plus its adjoint, timed as
+        forward + ``backward()``, under a ``|grad`` key.  The chosen
+        plan's provenance is on ``plan.tune_result``.
+        """
+        if batch != 1:
+            tune_kw = dict(tune_kw, batch=batch)
+        return cls(tuple(shape), mesh, dtype=dtype, tune=mode,
+                   problem=problem, grad=grad, wisdom_path=wisdom_path,
+                   tune_kw=tune_kw or None)
+
+    def candidate(self):
+        """This plan's tuner-space identity: the searched
+        ``ScheduleCandidate`` when one was picked, else the
+        (decomp, opts) ``Candidate`` — the object the cost model reads."""
+        from repro_torch.tuning.candidates import Candidate
+        if self.schedule is not None:
+            if self.schedule.problem == self.problem:
+                return self.schedule
+            return dataclasses.replace(self.schedule, problem=self.problem)
+        return Candidate(self.decomp, self.opts, problem=self.problem,
+                         strategy=self.strategy)
+
     # -- models --------------------------------------------------------------
     def _forward_schedule(self):
-        """The stage schedule ``forward`` executes (None when meshless)."""
+        """The stage schedule ``forward`` executes (None when meshless) —
+        the tuner's ``cost_model.schedule_for``, so this plan's models and
+        the planner's ranking read the identical object (including
+        out-of-body reshards like the embedding's guarded half-slice)."""
         if self.mesh is None or self.decomp is None:
             return None
-        if self.problem == "r2c" and self.strategy == "packed":
-            from repro_torch.real import pipeline
-            return pipeline.build_packed_forward(self.decomp)
-        return distributed.build_schedule(self.decomp, self.opts, -1)
+        from repro_torch.tuning.cost_model import schedule_for
+        return schedule_for(self.shape, self.candidate())
 
     def flops_model(self) -> float:
         """Analytic 5 N log2 N FLOP count for the full 3-D transform,
@@ -242,6 +382,20 @@ class Croft3D:
         per_device = sum(5.0 * elems * math.log2(n) for _, elems, n
                          in sched.fft_events(self.shape, sizes))
         return per_device * self.decomp.n_procs(sizes)
+
+    def comm_bytes_model(self) -> float:
+        """Bytes each rank's transposes move per transform: the sum of the
+        schedule's per-stage transpose volumes plus its out-of-body
+        reshards — read from the same ``Schedule`` the executor runs.
+        ``Mesh.counting`` counts all of it for an all-to-all stage, whose
+        send buffer holds the rank's own chunk, and (P-1)/P of it for a
+        ring or pairwise stage, which never sends the piece it keeps."""
+        sched = self._forward_schedule()
+        if sched is None:
+            return 0.0
+        events = sched.comm_events(self.shape, self.mesh.shape,
+                                   self.dtype.itemsize)
+        return float(sum(ev["bytes"] for ev in events))
 
 
 def auto_pencil(shape: Sequence[int], mesh,

@@ -27,10 +27,18 @@ the wire and back after it: that copy is the transport of a gloo group,
 written once in :meth:`Mesh._to_wire`/:meth:`Mesh._from_wire` and
 counted in ``host_staged_bytes``.  The code never switches backend by
 itself.
+
+:meth:`Mesh.counting` counts, per kind, what the collectives put on the
+wire (the port's stand-in for counting collectives in compiled HLO): one
+``"all-to-all"`` per ``all_to_all_single`` (:meth:`Mesh.all_to_all`,
+:meth:`Mesh.reshard`, :meth:`Mesh.mirror`, :meth:`Mesh.gather`) and one
+``"collective-permute"`` per point-to-point round of
+:meth:`Mesh.exchange`, with the bytes this rank hands them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from typing import Callable, Optional, Sequence
@@ -63,6 +71,33 @@ class Pending:
         return self._finish()
 
 
+class CollectiveCount:
+    """Per-kind collective launches and bytes on one rank, the reference's
+    HLO collective statistics in the same form: ``collectives`` maps a
+    kind to ``{"count": n, "bytes": b}``.
+
+    The bytes are what this rank hands each collective to send, as the
+    reference counts a collective's operand: an all-to-all's whole send
+    buffer (the chunk a rank sends itself included), a ring or pairwise
+    round's one piece (the piece a rank keeps is never sent)."""
+
+    def __init__(self):
+        self.collectives: dict = {}
+
+    def add(self, kind: str, nbytes: int) -> None:
+        e = self.collectives.setdefault(kind, {"count": 0, "bytes": 0})
+        e["count"] += 1
+        e["bytes"] += int(nbytes)
+
+    @property
+    def counts(self) -> dict:
+        return {k: e["count"] for k, e in self.collectives.items()}
+
+    @property
+    def bytes(self) -> int:
+        return sum(e["bytes"] for e in self.collectives.values())
+
+
 class Mesh:
     """A named mesh of ranks; build with :func:`make_mesh`."""
 
@@ -74,6 +109,22 @@ class Mesh:
         self.reshard_bytes = 0
         self._members = {}
         self._folded = self._fold_groups()
+        self._count: Optional[CollectiveCount] = None
+
+    @contextlib.contextmanager
+    def counting(self):
+        """Count this rank's collectives inside the scope (host-side
+        bookkeeping from tensor shapes: no synchronisation, nothing
+        launched).  Yields the :class:`CollectiveCount`."""
+        prev, self._count = self._count, CollectiveCount()
+        try:
+            yield self._count
+        finally:
+            self._count = prev
+
+    def _counted(self, kind: str, nbytes: int) -> None:
+        if self._count is not None:
+            self._count.add(kind, nbytes)
 
     def _fold_groups(self) -> dict:
         """One process group per line of every set of two or more axes,
@@ -210,6 +261,7 @@ class Mesh:
                                          device=x.device)]
         chunks = chunks.contiguous()
         recv = torch.empty_like(chunks)
+        self._counted("all-to-all", chunks.numel() * chunks.element_size())
         work = dist.all_to_all_single(recv, chunks, group=self.group(axis),
                                       async_op=True)
 
@@ -229,6 +281,7 @@ class Mesh:
         group = self.group(axis)
         ops, landings = [], []
         for t, dst in sends:
+            self._counted("collective-permute", t.numel() * t.element_size())
             ops.append(dist.P2POp(dist.isend, self._to_wire(t),
                                   dist.get_global_rank(group, dst), group))
         for buf, src in recvs:
@@ -359,6 +412,7 @@ class Mesh:
         send = (torch.cat(sends) if sends else
                 torch.empty(0, dtype=blk.dtype, device=blk.device))
         recv = torch.empty(sum(recv_sizes), dtype=blk.dtype, device=blk.device)
+        self._counted("all-to-all", send.numel() * send.element_size())
         dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
         out = torch.empty(lead + tuple(s.stop - s.start for s in dst[me]),
                           dtype=blk.dtype, device=blk.device)

@@ -365,6 +365,18 @@ def stage_overlap_k(st: Stage, opts) -> int:
     return st.overlap_k if st.overlap_k is not None else opts.overlap_k
 
 
+def stage_category(st: Stage) -> str:
+    """The dominant tracer category of a stage (``repro_torch.obs``'s
+    ``CATEGORIES``)."""
+    if st.fft_axis is not None:
+        return "fft"
+    if st.comm_axis is not None:
+        return "collective"
+    if st.prologue:
+        return "pack"
+    return "unpack" if st.epilogue else "epilogue"
+
+
 @dataclasses.dataclass(frozen=True)
 class StagePoints:
     """Layouts at the four observation points of one stage."""

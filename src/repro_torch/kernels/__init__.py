@@ -17,8 +17,9 @@ ref             plain oracles for the tests
 _build          nvcc build, ctypes loading and launch counters
 """
 
-from repro_torch.kernels._build import launch_counts, reset_launch_counts
+from repro_torch.kernels._build import (KernelError, launch_counts,
+                                       reset_launch_counts)
 from repro_torch.kernels.ops import fft_matmul_1d, spectral_scale_op
 
-__all__ = ["fft_matmul_1d", "launch_counts", "reset_launch_counts",
-           "spectral_scale_op"]
+__all__ = ["KernelError", "fft_matmul_1d", "launch_counts",
+           "reset_launch_counts", "spectral_scale_op"]

@@ -40,6 +40,13 @@ _lock = threading.Lock()
 _launches: dict[str, int] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel did not build, load or launch: ``nvcc`` is
+    missing or refused a source, or a launcher returned a CUDA error.
+    Callers let it through, so a failing kernel is never replaced by
+    another version of the same work."""
+
+
 def count_launch(name: str) -> None:
     _launches[name] = _launches.get(name, 0) + 1
 
@@ -59,7 +66,7 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+        raise KernelError("nvcc not found: the CUDA kernels are built on a "
                            "machine with the CUDA toolkit")
     return path
 
@@ -90,7 +97,7 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial .so
     (BUILD / f"{name}.ptxas.log").write_text(log)
     return log
@@ -115,7 +122,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            try:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+            except OSError as e:
+                raise KernelError(f"cannot load {name}.cu's library: "
+                                  f"{e}") from e
             _libs[name] = lib
         return lib
 
@@ -166,4 +177,4 @@ def memory(t: torch.Tensor) -> torch.Tensor:
 def check(status: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a launcher."""
     if status != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {status}")
+        raise KernelError(f"{name} launch failed: CUDA error {status}")

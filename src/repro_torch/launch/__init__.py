@@ -1,1 +1,2 @@
-"""Launch layer: the serving entry point (port of ``repro/launch``)."""
+"""Launch layer: the serving entry point and the roofline constants
+(port of ``repro/launch``)."""

@@ -1,0 +1,45 @@
+"""repro_torch.obs — span tracing and metrics (port of ``repro.obs``).
+
+Two pieces, copies of the reference's pure-Python modules:
+
+  * :mod:`repro_torch.obs.tracer` — thread-safe span tracer with
+    Chrome-trace JSON export and an in-process ring buffer; a no-op
+    tracer is the process default, so instrumentation costs nothing
+    until :func:`enable` / :func:`tracing` installs a real one.
+  * :mod:`repro_torch.obs.metrics` — named counters, gauges and
+    log-bucketed histograms with quantile estimation; JSON snapshots and
+    Prometheus text exposition.
+
+The tuner reads the collective calibration gauges and writes its
+``tune_*`` and ``wisdom_corrupt_files`` counters here, and wraps its
+timing runs in ``tag_scope(traffic="tuning")``.
+"""
+
+from repro_torch.obs.tracer import (  # noqa: F401
+    CATEGORIES,
+    NOOP,
+    NoopTracer,
+    Tracer,
+    current_tags,
+    disable,
+    enable,
+    get_tracer,
+    set_tracer,
+    tag_scope,
+    tracing,
+)
+from repro_torch.obs.metrics import (  # noqa: F401
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_registry,
+    set_registry,
+)
+
+__all__ = [
+    "CATEGORIES", "NOOP", "NoopTracer", "Tracer", "current_tags",
+    "disable", "enable", "get_tracer", "set_tracer", "tag_scope",
+    "tracing", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "get_registry", "set_registry",
+]
