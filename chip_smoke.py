@@ -134,7 +134,6 @@ import json
 import math
 from collections import Counter
 import os
-import socket
 import statistics
 import subprocess
 import sys
@@ -990,12 +989,10 @@ MESHES = (((2, 2), ("data", "model"), "pencil"), ((4,), ("p",), "slab"))
 def worker(rank: int, port: int) -> None:
     """One rank of phases 3 and 3b; prints its results as JSON lines."""
     import torch
-    import torch.distributed as dist
     from repro_torch.core import make_mesh
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=RANKS)
+    join_ranks(rank, port, RANKS)
     meshes = [(make_mesh(sizes, names, device=dev), kind, names)
               for sizes, names, kind in MESHES]
     res = worker_c2c(rank, dev, meshes)
@@ -1005,7 +1002,7 @@ def worker(rank: int, port: int) -> None:
     print("RESULT_R2C " + json.dumps(res), flush=True)
     res = worker_grad(rank, dev, meshes)
     print("RESULT_GRAD " + json.dumps(res), flush=True)
-    dist.destroy_process_group()
+    leave_ranks(*(m for m, _, _ in meshes))
 
 
 def _sq_norm(y):
@@ -1270,10 +1267,76 @@ def worker_c2c(rank: int, dev, meshes) -> dict:
     return res
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def spawn_ranks(flag: str, ranks: int, *args) -> list:
+    """Run this script's ``flag`` worker as ``ranks`` processes on the one
+    card, joined by one gloo group whose rendezvous store this process
+    hosts (bound to port 0, so no other process can take the port first;
+    it outlives every rank); returns their outputs.  Fails naming every
+    rank that failed."""
+    import datetime
+    import torch.distributed as dist
+    store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
+         str(store.port)] + [str(a) for a in args], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(ranks)]
+    outs = []
+    try:
+        deadline = time.time() + TIMEOUT_S
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        del store
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    for r in failed:
+        print(f"--- {flag} rank {r} exited {procs[r].returncode}:\n"
+              + outs[r][-4000:], file=sys.stderr)
+    if failed:
+        raise SystemExit(f"FAILED: {flag} ranks {failed} exited non-zero")
+    return outs
+
+
+def join_ranks(rank: int, port: int, world: int) -> None:
+    """A worker joins the spawning process's store as ``rank``."""
+    import datetime
+    import torch.distributed as dist
+    store = dist.TCPStore("127.0.0.1", int(port), world, is_master=False,
+                          timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+
+
+def leave_ranks(*meshes) -> None:
+    """Tear the groups down in one order on every rank, while every rank
+    is alive: a barrier, each mesh's groups (``Mesh.close``), then the
+    default group.  A group left for interpreter exit to destroy can take
+    the process down with it once another rank has gone."""
+    import gc
+    import torch.distributed as dist
+    dist.barrier()
+    for mesh in meshes:
+        mesh.close()
+    dist.destroy_process_group()
+    gc.collect()
+
+
+def _results(outs: list, key: str, phase: str) -> list:
+    """Each rank's last ``key`` JSON line."""
+    got = []
+    for r, out in enumerate(outs):
+        lines = [l for l in out.splitlines() if l.startswith(key + " ")]
+        if not lines:
+            print(out[-4000:], file=sys.stderr)
+            raise SystemExit(f"FAILED: phase {phase} rank {r} printed no "
+                             f"{key}")
+        got.append(json.loads(lines[-1][len(key) + 1:]))
+    return got
 
 
 def _summarize(results: list, phase: str) -> dict:
@@ -1297,33 +1360,10 @@ def _summarize(results: list, phase: str) -> dict:
 
 
 def phase_distributed() -> tuple[dict, dict, dict]:
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--worker", str(r),
-         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(RANKS)]
-    outs = []
-    try:
-        deadline = time.time() + TIMEOUT_S
-        for p in procs:
-            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    results, results_r2c, results_grad = [], [], []
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        found = {key: [l for l in out.splitlines() if l.startswith(key + " ")]
-                 for key in ("RESULT", "RESULT_R2C", "RESULT_GRAD")}
-        if p.returncode != 0 or not all(found.values()):
-            print(out[-4000:], file=sys.stderr)
-            raise SystemExit(f"FAILED: phase 3/3b rank {r} exited "
-                             f"{p.returncode}")
-        for key, into in (("RESULT", results), ("RESULT_R2C", results_r2c),
-                          ("RESULT_GRAD", results_grad)):
-            into.append(json.loads(found[key][-1][len(key) + 1:]))
+    outs = spawn_ranks("--worker", RANKS)
+    results, results_r2c, results_grad = (
+        _results(outs, key, "3") for key in ("RESULT", "RESULT_R2C",
+                                             "RESULT_GRAD"))
     counts = _summarize(results, "3")
     print(f"[3] profiled pencil ring forward, rank 0: "
           f"{json.dumps(results[0]['pack_profile'])}", flush=True)
@@ -1361,13 +1401,11 @@ def phase_distributed() -> tuple[dict, dict, dict]:
 def worker_cell(rank: int, port: int) -> None:
     """One rank of phase 3c; prints its result as a JSON line."""
     import torch
-    import torch.distributed as dist
     from repro_torch.core import Croft3D, Decomposition, FFTOptions, make_mesh
     from repro_torch.kernels import launch_counts, reset_launch_counts
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=CELL_RANKS)
+    join_ranks(rank, port, CELL_RANKS)
     cube = make_mesh((2, 2, 2), ("a", "b", "c"), device=dev)
     flat = make_mesh((2, 4), ("y", "z"), device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1434,34 +1472,12 @@ def worker_cell(rank: int, port: int) -> None:
     res["launches"] = launch_counts()
     res["reshard_bytes"] = cube.reshard_bytes + flat.reshard_bytes
     print("RESULT_CELL " + json.dumps(res), flush=True)
-    dist.destroy_process_group()
+    leave_ranks(cube, flat)
 
 
 def phase_cell() -> dict:
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--worker-cell", str(r),
-         str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(CELL_RANKS)]
-    outs = []
-    try:
-        deadline = time.time() + TIMEOUT_S
-        for p in procs:
-            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    results = []
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        lines = [l for l in out.splitlines() if l.startswith("RESULT_CELL ")]
-        if p.returncode != 0 or not lines:
-            print(out[-4000:], file=sys.stderr)
-            raise SystemExit(f"FAILED: phase 3c rank {r} exited "
-                             f"{p.returncode}")
-        results.append(json.loads(lines[-1][len("RESULT_CELL "):]))
+    results = _results(spawn_ranks("--worker-cell", CELL_RANKS),
+                       "RESULT_CELL", "3c")
     counts = {}
     for res in results:
         for name, c in res["launches"].items():
@@ -1850,8 +1866,7 @@ def worker_tune(rank: int, port: int, wdir: str) -> None:
     from repro_torch.tuning import cost_model
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=RANKS)
+    join_ranks(rank, port, RANKS)
     mesh = make_mesh((2, 2), ("data", "model"), device=dev)
     shape = (DIST,) * 3
     wpath = os.path.join(wdir, "wisdom.json")
@@ -1969,7 +1984,7 @@ def worker_tune(rank: int, port: int, wdir: str) -> None:
         new_runs=reg.counter("tune_measure_runs").value - runs,
         launches=launch_counts())
     print("RESULT_TUNE " + json.dumps(res), flush=True)
-    dist.destroy_process_group()
+    leave_ranks(mesh)
 
 
 def phase_tune(dev) -> dict:
@@ -1977,32 +1992,9 @@ def phase_tune(dev) -> dict:
     import tempfile
     t0 = time.time()
     phase_tune_model(dev)
-    port = _free_port()
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wdir:
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--worker-tune",
-             str(r), str(port), wdir], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
-        outs = []
-        try:
-            deadline = time.time() + TIMEOUT_S
-            for p in procs:
-                out, _ = p.communicate(
-                    timeout=max(1.0, deadline - time.time()))
-                outs.append(out)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-    results = []
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        lines = [l for l in out.splitlines() if l.startswith("RESULT_TUNE ")]
-        if p.returncode != 0 or not lines:
-            print(out[-4000:], file=sys.stderr)
-            raise SystemExit(f"FAILED: phase 6 rank {r} exited "
-                             f"{p.returncode}")
-        results.append(json.loads(lines[-1][len("RESULT_TUNE "):]))
+        outs = spawn_ranks("--worker-tune", RANKS, wdir)
+    results = _results(outs, "RESULT_TUNE", "6")
     counts = Counter()
     for res in results:
         for race in res["races"].values():
@@ -2085,6 +2077,423 @@ def phase_tune(dev) -> dict:
     return dict(counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the transform service on the card
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 4        # the service's max_batch in phase 7
+SERVE_MIX = 4          # rounds of transforms_main's 3 c2c : 2 r2c : 1 filtered
+SERVE_INVERSES = 2     # c2c and r2c inverse requests each (7a)
+SERVE_BOUND = 1e-6     # batched vs direct, relative to max|ref| (ROADMAP §3)
+
+
+def _phase_spans(events: list) -> list:
+    """Per-batch (rows, h2d, compute, d2h ms, problem) from the tracer, in
+    order."""
+    by = {n: [e for e in events if e["name"] == n]
+          for n in ("batch:h2d", "batch:compute", "batch:d2h")}
+    return [(c["args"]["rows"], a["dur"] / 1e3, c["dur"] / 1e3,
+             d["dur"] / 1e3, f"{c['args']['problem']}/"
+             f"{c['args']['direction']}")
+            for a, c, d in zip(by["batch:h2d"], by["batch:compute"],
+                               by["batch:d2h"])]
+
+
+_STAGING = []
+
+
+def _to_card(value, device):
+    """A host array on ``device``: through the meshless service's pinned
+    staging (one for the harness) on the card."""
+    import torch
+    src = torch.from_numpy(value)
+    if device.type != "cuda":
+        return src.to(device)
+    from repro_torch.serve.service import _Staging
+    if not _STAGING:
+        _STAGING.append(_Staging())
+    got = torch.empty(src.shape, dtype=src.dtype, device=device)
+    _STAGING[0].upload(src, got)
+    return got
+
+
+def _to_host(t):
+    """The card's tensor as a new host array, through the same staging."""
+    from repro_torch.serve.service import _Staging
+    if not _STAGING:
+        _STAGING.append(_Staging())
+    return _STAGING[0].download(t).numpy()
+
+
+def _served_err(value, want) -> float:
+    """max |served - want| / max |want|, on want's device."""
+    got = _to_card(value, want.device)
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+class _HostMemory:
+    """The process's peak resident set over a window, sampled from
+    ``/proc/self/statm`` every 10 ms by a thread of its own, and PyTorch's
+    pinned host memory (its caching allocator's bytes, peak reset when
+    the window opens)."""
+
+    def __enter__(self):
+        import threading
+        import torch
+        if hasattr(torch.cuda, "reset_peak_host_memory_stats"):
+            torch.cuda.reset_peak_host_memory_stats()
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    def report(self) -> str:
+        import torch
+        stats = getattr(torch.cuda, "host_memory_stats", None)
+        pinned = ("not available" if stats is None else
+                  {k: v for k, v in stats().items()
+                   if "allocated_bytes" in k})
+        return (f"RSS {self.start / 2**30:.2f} GiB at the start, peak "
+                f"{self.peak / 2**30:.2f} GiB; pinned {pinned}")
+
+
+def phase_service_local(dev) -> dict:
+    """Phase 7a: the meshless service on the card (``TransformService``
+    with no mesh: ``Croft3D`` plans with the default options), 512^3,
+    ``transforms_main``'s mix plus inverse requests, open loop; then one
+    croft-1024 request.  Returns the launch counts of both runs."""
+    import torch
+    from repro_torch.core import Croft3D
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import tracer as tracer_lib
+    from repro_torch.serve import TransformService
+    shape = (HALF,) * 3
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    xc = torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+    xr = torch.randn(shape, device=dev, generator=gen)
+    h = torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+    want = {"c2c": torch.fft.fftn(xc), "r2c": torch.fft.rfftn(xr),
+            "c2c-inv": xc, "r2c-inv": xr}          # oracles
+    want["filtered"] = want["c2c"] * h
+    host = {k: _to_host(v) for k, v in (
+        ("xc", xc), ("xr", xr), ("h", h), ("yc", want["c2c"]),
+        ("yr", want["r2c"]))}
+    mix = ([("c2c", host["xc"], {})] * 3
+           + [("r2c", host["xr"], {"problem": "r2c"})] * 2
+           + [("filtered", host["xc"], {"problem": "filtered",
+                                         "h": host["h"]})])
+    reqs = (mix * SERVE_MIX
+            + [("c2c-inv", host["yc"], {"direction": "inverse"})]
+            * SERVE_INVERSES
+            + [("r2c-inv", host["yr"], {"problem": "r2c",
+                                        "direction": "inverse",
+                                        "shape": shape})] * SERVE_INVERSES)
+    tol = {"c2c": FFT3_TOL, "filtered": FFT3_TOL, "r2c": RFFT_TOL,
+           "c2c-inv": FFT3_TOL, "r2c-inv": RFFT_TOL}
+    tracer = tracer_lib.enable()
+    start = len(tracer.events())
+    reset_launch_counts()
+    t0 = time.monotonic()
+    with _HostMemory() as mem, TransformService(
+            device=dev, max_batch=SERVE_BATCH, max_wait_ms=2.0) as svc:
+        futs = [(k, svc.submit(x, **kw)) for k, x, kw in reqs]
+        results = [(k, f.result(timeout=TIMEOUT_S)) for k, f in futs]
+        stats = svc.stats()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    spans = _phase_spans(tracer.events()[start:])
+    errs = {}
+    for k, r in results:
+        check(r.ok, f"phase 7a {k} request failed: {r.error}")
+        errs[k] = max(errs.get(k, 0.0), _served_err(r.value, want[k]))
+    for k, e in errs.items():
+        check(e < tol[k], f"phase 7a {k}: rel err {e} >= {tol[k]}")
+    # batched against direct on the same plan (the bound of ROADMAP §3)
+    first = max((r for k, r in results if k == "c2c"),
+                key=lambda r: r.batch_size)
+    direct = Croft3D(shape, device=dev).forward(xc)
+    diff = _served_err(first.value, direct)
+    bitwise = bool(torch.equal(_to_card(first.value, dev), direct))
+    check(diff <= SERVE_BOUND, f"phase 7a batched vs direct {diff}")
+    lat = sorted(r.latency_s * 1e3 for _, r in results)
+    pct = {p: lat[min(len(lat) - 1, int(p / 100 * len(lat)))]
+           for p in (50, 90, 99)}
+    print(f"[7a] {len(reqs)} requests at {HALF}^3 (max_batch "
+          f"{SERVE_BATCH}, open loop) in {wall:.2f} s: {stats['batches']} "
+          f"batches, occupancy {stats['occupancy']:.3f}, batch sizes "
+          f"{stats['batch_hist']}; latency ms p50 {pct[50]:.1f} p90 "
+          f"{pct[90]:.1f} p99 {pct[99]:.1f} (registry histogram: "
+          f"{ {k: round(v, 1) for k, v in stats['latency_ms'].items()} })",
+          flush=True)
+    print(f"[7a] max rel err vs torch.fft: "
+          f"{ {k: f'{e:.3e}' for k, e in errs.items()} }; batched vs "
+          f"direct (a batch of {first.batch_size}) {diff:.3e} of max|ref| "
+          f"(bitwise {bitwise})", flush=True)
+    print(f"[7a] plan cache {json.dumps(stats['plan_cache'])}", flush=True)
+    for i, (rows, a, b, c, what) in enumerate(spans):
+        print(f"[7a] batch {i} ({what}, {rows} rows): h2d {a:.1f} ms, "
+              f"compute {b:.1f} ms, d2h {c:.1f} ms", flush=True)
+    print(f"[7a] the service's {wall * 1e3:.0f} ms: h2d "
+          f"{sum(x[1] for x in spans):.0f}, compute "
+          f"{sum(x[2] for x in spans):.0f}, d2h "
+          f"{sum(x[3] for x in spans):.0f} ms in the batch spans",
+          flush=True)
+    print(f"[7a] launches {counts}", flush=True)
+    print(f"[7a] host memory: {mem.report()}; of it the payloads "
+          f"{sum(a.nbytes for a in host.values()) / 2**30:.2f} GiB and the "
+          f"results {sum(r.value.nbytes for _, r in results) / 2**30:.2f} "
+          f"GiB", flush=True)
+    check(counts.get("spectral_scale_full", 0) > 0,
+          "spectral_scale_full not launched in phase 7a")
+    del xc, xr, h, want, host, mix, reqs, futs, results, direct, first
+    torch.cuda.empty_cache()
+
+    # one croft-1024 request at batch 1 (8 GiB in, 8 GiB out)
+    big = (FULL,) * 3
+    x = torch.randn(big, dtype=torch.complex64, device=dev, generator=gen)
+    payload = _to_host(x)
+    ref = torch.fft.fftn(x)                           # oracle only
+    del x
+    torch.cuda.empty_cache()
+    start = len(tracer.events())
+    reset_launch_counts()
+    with _HostMemory() as mem, TransformService(device=dev,
+                                                max_batch=1) as svc:
+        r = svc.submit(payload).result(timeout=TIMEOUT_S)
+    big_counts = launch_counts()
+    (_, h2d, comp, d2h, _), = _phase_spans(tracer.events()[start:])
+    tracer_lib.disable()
+    check(r.ok, f"phase 7a {FULL}^3 request failed: {r.error}")
+    del payload
+    err = _served_err(r.value, ref)
+    check(err < FFT3_TOL, f"phase 7a {FULL}^3: rel err {err}")
+    print(f"[7a] one {FULL}^3 c2c request: latency "
+          f"{r.latency_s * 1e3:.1f} ms (h2d {h2d:.1f}, compute {comp:.1f}, "
+          f"d2h {d2h:.1f}), rel err {err:.3e}, launches {big_counts}; "
+          f"host memory: {mem.report()} (payload and result 8 GiB each)",
+          flush=True)
+    del r, ref
+    torch.cuda.empty_cache()
+    return dict(Counter(counts) + Counter(big_counts))
+
+
+def worker_service(rank: int, port: int, wdir: str) -> None:
+    """One rank of phase 7b: the SPMD service on a pencil 2x2 mesh at
+    256^3, rank 0 the front end; prints its result as a JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import Croft3D, Decomposition, FFTOptions, make_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import tracer as tracer_lib
+    from repro_torch.resil import FaultSpec, injection
+    from repro_torch.serve import PlanCache, TransformService
+    from repro_torch.tuning import wisdom as wisdom_lib
+    from repro_torch.tuning.candidates import Candidate
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    join_ranks(rank, port, RANKS)
+    mesh = make_mesh((2, 2), ("y", "z"), device=dev)
+    shape = (DIST,) * 3
+    lead = rank == 0
+    wpath = os.path.join(wdir, "wisdom.json")
+    cache = PlanCache(mesh, wisdom_path=wpath, max_plans=2, measure_after=3,
+                      quarantine_after=1,
+                      tune_kw=dict(top_k=2, measure_iters=2))
+    ckey = cache.key_for(shape, np.complex64, "c2c")
+    rkey = cache.key_for(shape, np.complex64, "r2c")
+    pencil = Decomposition("pencil", ("y", "z"))
+    if lead:
+        # the plans a user imports as wisdom: a ring c2c plan with the
+        # Hopper FFT kernel (a model pick: cold, so it gets measured) and a
+        # packed r2c plan with the kernels (measured: it stays)
+        ring = Candidate(pencil, FFTOptions(transpose_impl="ring",
+                                            local_impl="pallas"))
+        packed = Candidate(pencil, FFTOptions(local_impl="pallas"),
+                           problem="r2c", strategy="packed")
+        wisdom_lib.merge_entries(wpath, {
+            ckey: wisdom_lib.WisdomEntry.from_candidate(ring, "model"),
+            rkey: wisdom_lib.WisdomEntry.from_candidate(
+                packed, "measure", measured_s=1.0)})
+    dist.barrier()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    xc = torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+    xr = torch.randn(shape, device=dev, generator=gen)
+    h = torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+    res = {"rank": rank}
+    served = None
+    svc = TransformService(mesh, max_batch=SERVE_BATCH, max_wait_ms=50.0,
+                           cache=cache, registry=cache.registry)
+    tracer = tracer_lib.enable()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    with svc:
+        if lead:
+            want = {"c2c": torch.fft.fftn(xc), "r2c": torch.fft.rfftn(xr)}
+            want["filtered"] = want["c2c"] * h
+            hc, hr, hh = (v.cpu().numpy() for v in (xc, xr, h))
+            yr = want["r2c"].cpu().numpy()
+            futs = [("c2c", svc.submit(hc)) for _ in range(3)]   # 3 -> 4
+            futs += [("r2c", svc.submit(hr, problem="r2c")) for _ in range(2)]
+            futs += [("filtered", svc.submit(hc, problem="filtered", h=hh)),
+                     ("r2c-inv", svc.submit(yr, problem="r2c",
+                                            direction="inverse",
+                                            shape=shape))]
+            first = [(k, f.result(timeout=TIMEOUT_S)) for k, f in futs]
+            # hits 3 and on: the measured upgrade, on every rank
+            after = [svc.submit(hc).result(timeout=TIMEOUT_S)
+                     for _ in range(3)]
+            evict = svc.submit(hc[:DIST // 2, :DIST // 2, :DIST // 2]
+                               ).result(timeout=TIMEOUT_S)
+            with injection([FaultSpec("exec.output", kind="nan")]):
+                poisoned = svc.submit(hc).result(timeout=TIMEOUT_S)
+            degraded = svc.submit(hc).result(timeout=TIMEOUT_S)
+            want["r2c-inv"], want["c2c-upgraded"] = xr, want["c2c"]
+            errs = {}
+            for k, r in first + [("c2c-upgraded", r) for r in after]:
+                check(r.ok, f"phase 7b {k} request failed: {r.error}")
+                errs[k] = max(errs.get(k, 0.0), _served_err(r.value, want[k]))
+            snap = svc.registry.snapshot()
+            res.update(
+                errs=errs, batch=[first[0][1].batch_size,
+                                  first[0][1].padded_size],
+                states=[r.plan_state for r in after], evict_ok=evict.ok,
+                poisoned=[poisoned.ok, poisoned.error],
+                degraded_err=_served_err(degraded.value, want["c2c"]),
+                counters={k: snap[k]["value"] for k in (
+                    "serve_nan_outputs", "plan_quarantines",
+                    "plan_degradations", "serve_requests", "serve_batches")})
+            served = degraded.value
+            del want
+    res["seconds"] = time.monotonic() - t0
+    res["launches"] = launch_counts()
+    res["spans"] = _phase_spans(tracer.events())
+    tracer_lib.disable()
+    cp = cache._plans[ckey]
+    res.update(upgrades=cache.stats.upgrades, evictions=cache.stats.evictions,
+               size=len(cache), rung=cp.rung, quarantined=cp.quarantined,
+               plan=cp.plan.candidate().label)
+    if lead:
+        blob = json.load(open(wpath))
+        res["wisdom"] = dict(source=blob["entries"][ckey]["source"],
+                             lock=os.path.exists(wpath + ".lock"))
+    # the degraded results against a direct call of the fallback plan
+    box = [served]
+    dist.broadcast_object_list(box, src=0)
+    with torch.no_grad():
+        y = cp.plan.forward(xc[cp.plan.input_sharding].contiguous())
+    res["degraded_bitwise"] = bool(np.array_equal(
+        box[0][cp.plan.output_sharding], y.cpu().numpy()))
+    # the batching gate: B = 4 counts B = 1's collectives and 4x the bytes
+    tuned = Croft3D(shape, mesh, tune="wisdom", wisdom_path=wpath)
+    packed = Croft3D(shape, mesh, pencil, FFTOptions(local_impl="pallas"),
+                     problem="r2c", strategy="packed")
+    res["gate"] = {}
+    for name, plan in (("c2c tuned", tuned), ("r2c packed", packed)):
+        rows = []
+        for b in (1, SERVE_BATCH):
+            x = torch.zeros((b,) + plan.local_input_shape(),
+                            dtype=plan.input_dtype, device=dev)
+            with torch.no_grad(), mesh.counting() as c:
+                plan.forward_batched(x)
+            rows.append(({k: e["count"] for k, e in c.collectives.items()},
+                         c.bytes))
+        res["gate"][name] = dict(plan=plan.candidate().label, b1=rows[0],
+                                 b4=rows[1])
+    print("RESULT_SERVICE " + json.dumps(res), flush=True)
+    svc.close()
+    leave_ranks(mesh)
+
+
+def phase_service_ranks() -> dict:
+    """Phase 7b: the SPMD service on 4 gloo ranks of the one card."""
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wdir:
+        outs = spawn_ranks("--worker-service", RANKS, wdir)
+    results = _results(outs, "RESULT_SERVICE", "7b")
+    r0 = results[0]
+    counts = Counter()
+    for res in results:
+        counts.update(res["launches"])
+    for k, e in r0["errs"].items():
+        tol = RFFT_TOL if k.startswith("r2c") else FFT3_TOL
+        check(e < tol, f"phase 7b {k}: rel err {e} >= {tol}")
+    check(r0["batch"] == [3, SERVE_BATCH],
+          f"phase 7b: the ragged batch ran as {r0['batch']}")
+    check(r0["states"][-1] == "warm"
+          and all(r["upgrades"] == 1 for r in results),
+          f"phase 7b: no cold -> warm upgrade on every rank "
+          f"({r0['states']}, {[r['upgrades'] for r in results]})")
+    check(r0["wisdom"] == {"source": "measure", "lock": False},
+          f"phase 7b: the measured plan is not in wisdom ({r0['wisdom']})")
+    check(r0["evict_ok"] and all(r["evictions"] >= 1 and r["size"] == 2
+                                 for r in results),
+          "phase 7b: no LRU eviction at max_plans=2 on every rank")
+    check(not r0["poisoned"][0] and "non-finite" in r0["poisoned"][1]
+          and r0["counters"]["serve_nan_outputs"] == 1
+          and r0["counters"]["plan_quarantines"] == 1
+          and r0["counters"]["plan_degradations"] == 1,
+          f"phase 7b: exec.output did not quarantine ({r0['poisoned']}, "
+          f"{r0['counters']})")
+    check(len({(r["rung"], r["plan"]) for r in results}) == 1
+          and r0["rung"] != "primary" and all(r["quarantined"]
+                                              for r in results),
+          f"phase 7b: the ranks degraded differently "
+          f"{[(r['rung'], r['plan']) for r in results]}")
+    check(all(r["degraded_bitwise"] for r in results)
+          and r0["degraded_err"] < FFT3_TOL,
+          "phase 7b: degraded results differ from the fallback plan")
+    for name, g in r0["gate"].items():
+        for res in results:
+            (c1, b1), (c4, b4) = res["gate"][name]["b1"], res["gate"][name]["b4"]
+            check(c1 == c4 and sum(c1.values()) > 0 and b4 == SERVE_BATCH * b1,
+                  f"phase 7b batching gate {name} rank {res['rank']}: "
+                  f"B=1 {c1} {b1} bytes, B={SERVE_BATCH} {c4} {b4} bytes")
+        print(f"[7b] batching gate {name} ({g['plan']}): B=1 {g['b1'][0]} "
+              f"{g['b1'][1]} bytes a rank, B={SERVE_BATCH} {g['b4'][0]} "
+              f"{g['b4'][1]} bytes", flush=True)
+    for name in ("fft4step", "rotate_blocks", "unpack_two_for_one",
+                 "hermitian_extend", "spectral_scale_full"):
+        check(counts.get(name, 0) > 0, f"{name} not launched in phase 7b")
+    print(f"[7b] {RANKS} ranks at {DIST}^3 (gloo): {r0['seconds']:.1f} s of "
+          f"service; rel err {r0['errs']}; upgrade states {r0['states']}; "
+          f"quarantined to {r0['rung']} ({r0['plan']}) on every rank, "
+          f"degraded results bitwise the fallback plan's; counters "
+          f"{r0['counters']}", flush=True)
+    for i, (rows, a, b, c, what) in enumerate(r0["spans"]):
+        print(f"[7b] batch {i} ({what}, {rows} rows; rank 0, gloo): "
+              f"scatter+h2d {a:.1f} ms, compute {b:.1f} ms, d2h+gather "
+              f"{c:.1f} ms", flush=True)
+    print(f"[7b] launches {dict(counts)}", flush=True)
+    return dict(counts)
+
+
+def phase_service(dev) -> dict:
+    """Phase 7: 7a then 7b; returns the launches of both."""
+    t0 = time.time()
+    local = phase_service_local(dev)
+    t1 = time.time()
+    counts = Counter(local) + Counter(phase_service_ranks())
+    print(f"[7] launches {dict(counts)}; phase 7 {time.time() - t0:.1f} s "
+          f"(7a {t1 - t0:.1f}, 7b {time.time() - t1:.1f})", flush=True)
+    return dict(counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2106,7 +2515,8 @@ def main() -> int:
     timings.update(phase_attention_kernel(dev))
     phase_host_overhead(dev)
     paths = [phase_full(dev), phase_real_full(dev), *phase_distributed(),
-             phase_cell(), phase_serve(dev), phase_grad(dev), phase_tune(dev)]
+             phase_cell(), phase_serve(dev), phase_grad(dev), phase_tune(dev),
+             phase_service(dev)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
@@ -2156,5 +2566,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--worker-tune":
         worker_tune(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker-service":
+        worker_service(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -146,6 +146,24 @@ class Mesh:
                         mine[frozenset(names[d] for d in subset)] = group
         return mine
 
+    def close(self) -> None:
+        """Destroy the process groups this mesh made, on every rank in one
+        order: the folded axes' groups (by their axis names), then the
+        device mesh's own (last axis first).  Call it on every rank once
+        the mesh's last collective has run, before
+        ``destroy_process_group``; the mesh is unusable after."""
+        if self.device_mesh is None:
+            return
+        groups = [self._folded[k] for k in sorted(self._folded, key=sorted)]
+        groups += [self.device_mesh.get_group(a)
+                   for a in reversed(self.axis_names)]
+        # drop this mesh's references, so that plans still holding the
+        # mesh (the autograd plan caches) hold no group past this call
+        self._folded, self.device_mesh = {}, None
+        for g in groups:
+            if g is not dist.GroupMember.WORLD and g in _live_groups():
+                dist.destroy_process_group(g)
+
     # -- shape and coordinates ----------------------------------------------
     @property
     def axis_names(self) -> tuple:
@@ -440,6 +458,11 @@ class Mesh:
         recvs = [(out, s) for s, d in perm if d == me]
         self.exchange(sends, recvs, axis).wait()
         return out
+
+
+def _live_groups():
+    """The process groups ``torch.distributed`` still holds."""
+    return dist.distributed_c10d._world.pg_map
 
 
 class _Move(torch.autograd.Function):

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import local_fft
 from repro_torch.core.mesh import Pending
+from repro_torch.resil import inject as inject_lib
 
 AxisName = Union[str, tuple]
 
@@ -707,6 +708,12 @@ def run_schedule(blk: torch.Tensor, sched: Schedule, opts, mesh,
         blk = run_stage(blk, st, sched.sign, opts, mesh, off, ctx)
     for op in sched.epilogue:
         blk = op.apply(blk, opts, ctx, off)
+    # Fault plane: output poisoning.  The port runs eagerly, so the
+    # injector is asked on every call (the reference asks once, while
+    # tracing); with none armed, or none matching, it launches nothing.
+    if inject_lib.corrupt("exec.output", sched.name):
+        blk = blk * torch.tensor(float("nan"), dtype=blk.dtype,
+                                 device=blk.device)
     return blk
 
 

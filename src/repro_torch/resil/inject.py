@@ -20,15 +20,14 @@ that script engine:
     a ``None`` check — the same zero-cost-when-disabled contract as
     ``repro_torch.obs.tracer``.
 
-Named sites (grep for the string to find the call site).  The port
-fires the two tuner sites; the others keep the reference's names for the
-serving and executor hooks that have no port yet:
+Named sites (grep for the string to find the call site), the
+reference's names at the same places of the ported modules:
 
   ``wisdom.write.crash`` Wisdom.save, between temp-write and atomic rename
   ``tune.measure``       tuning.measure.measure_candidate, before the
                          candidate's plan is built
   ``plan.build``         the serving plan cache's tuned plan construction
-  ``plan.upgrade``       the serving plan cache's background re-plan
+  ``plan.upgrade``       the serving plan cache's measured re-plan
   ``serve.dispatch``     the transform service's batch dispatch
   ``exec.output``        the executor's output poisoning
 

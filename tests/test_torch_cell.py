@@ -19,16 +19,13 @@ of the reference's global arrays:
 
 import json
 import math
-import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import SRC, run_multidevice
+import torch_ranks
+from conftest import run_multidevice
 from repro_torch.core import Croft3D, Decomposition, FFTOptions
 
 N = 16
@@ -79,10 +76,10 @@ print("OK reference")
 WORKER = r"""
 import json, sys
 import numpy as np, torch, torch.distributed as dist
+from torch_ranks import join, leave
 from repro_torch.core import Croft3D, Decomposition, FFTOptions, make_mesh
 rank, port, npz, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=8)
+join(rank, port, 8)
 ref = np.load(npz)
 x, g, xr = ref["x"], ref["g"], ref["xr"]
 N = x.shape[0]
@@ -138,16 +135,10 @@ for kind, (sizes, names, axes) in %r.items():
                   / np.abs(want).max()),
         rt=float((xb - xl.detach()).abs().max()), real=not xb.is_complex(),
         grad=rel(xl.grad, ref[f"embed_grad_{kind}"][isl])))
-dist.destroy_process_group()
 with open(f"{out}/rank{rank}.json", "w") as f:
     json.dump(records, f)
+leave(*meshes.values())
 """
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -160,26 +151,7 @@ def reference_path(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_records(reference_path, tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
-    script = out / "worker.py"
-    script.write_text(WORKER % (C2C, EMBED))
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
-                               reference_path, str(out)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(8)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    torch_ranks.spawn(WORKER % (C2C, EMBED), 8, [reference_path, out], out)
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(8)]
 
 

@@ -6,6 +6,7 @@ compiled for sm_90a by nvcc at first use).  On a machine with the card:
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -185,6 +186,60 @@ def test_spectral_scale_kernels_match_plain(cuda_device, alpha):
     want = spectral_scale.spectral_scale_plain(x, hb, alpha)
     assert (got.reshape(37, 513) - want).abs().max().item() <= \
         SCALE_TOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_meshless_service_runs_the_scale_kernel(cuda_device):
+    """A meshless ``TransformService`` on the card serves a filtered
+    request at 64^3 through the full-shape scale kernel."""
+    from repro_torch.serve import TransformService
+    gen = torch.Generator(device=cuda_device).manual_seed(64)
+    x = torch.randn((64,) * 3, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    h = torch.randn((64,) * 3, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    before = launch_counts().get("spectral_scale_full", 0)
+    with TransformService() as svc:
+        assert svc.device.type == "cuda"
+        got = svc.transform(x.cpu().numpy(), problem="filtered",
+                            h=h.cpu().numpy())
+    assert launch_counts().get("spectral_scale_full", 0) > before
+    want = torch.fft.fftn(x) * h
+    err = (torch.from_numpy(got).to(cuda_device) - want).abs().max()
+    assert err.item() <= 5e-4 * want.abs().max().item()  # test_kernels_fft.py:78
+
+
+@pytest.mark.cuda
+def test_meshless_service_stages_through_bounded_pinned_memory(
+        cuda_device, monkeypatch):
+    """The meshless service on the card moves payloads and results through
+    its two pinned chunks (made smaller here than one plane of the field,
+    so each plane goes row block by row block): ragged rows, payloads cast
+    on the way (float64 to complex64), a transposed and a reversed view
+    come back bitwise equal to the cached plan's batched call on the same
+    stack, and the pinned bytes do not grow from batch to batch."""
+    from repro_torch.serve import TransformService
+    from repro_torch.serve import service as service_mod
+    monkeypatch.setattr(service_mod._Staging, "CHUNK", 1 << 12)
+    rng = np.random.RandomState(65)
+    xs = [rng.randn(32, 32, 32), rng.randn(32, 32, 32).transpose(2, 0, 1),
+          rng.randn(32, 32, 32)[::-1]]  # float64 payloads
+    pinned = []
+    with TransformService(max_batch=4, max_wait_ms=200.0) as svc:
+        for _ in range(3):
+            futs = [svc.submit(x) for x in xs]
+            got = [f.result(timeout=300) for f in futs]
+            pinned.append([v for k, v in torch.cuda.host_memory_stats(
+            ).items() if "allocated_bytes" in k and k.endswith("current")])
+        plan = svc.cache.get((32, 32, 32)).plan
+    assert all(r.ok and (r.batch_size, r.padded_size) == (3, 4) for r in got)
+    stack = torch.zeros((4, 32, 32, 32), dtype=torch.complex64,
+                        device=cuda_device)
+    stack[:3] = torch.from_numpy(np.stack(xs)).to(cuda_device)
+    want = plan.forward_batched(stack)[:3].cpu().numpy()
+    for r, w in zip(got, want):
+        assert np.array_equal(r.value, w)
+    assert pinned[0] == pinned[1] == pinned[2], pinned
 
 
 @pytest.mark.cuda

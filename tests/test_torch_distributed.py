@@ -12,15 +12,12 @@ reference output.
 """
 
 import json
-import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-from conftest import SRC, run_multidevice
+import torch_ranks
+from conftest import run_multidevice
 from repro_torch.core import Decomposition
 
 N = 16
@@ -63,17 +60,18 @@ print("OK reference")
 WORKER = r"""
 import json, sys
 import numpy as np, torch, torch.distributed as dist
+from torch_ranks import join, leave
 from repro_torch.core import (Croft3D, Decomposition, FFTOptions,
                               local_block, make_mesh)
 rank, port, npz, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=4)
+join(rank, port, 4)
 ref = np.load(npz)
 x = ref["x"]
 shape = x.shape
-records = []
+records, meshes = [], []
 for kind, (sizes, names) in %r.items():
     mesh = make_mesh(sizes, names, device="cpu")
+    meshes.append(mesh)
     dec = Decomposition(kind, names)
     xl = torch.from_numpy(np.ascontiguousarray(
         local_block(x, dec, mesh.shape, mesh.coords)))
@@ -120,16 +118,10 @@ for kind, (sizes, names) in %r.items():
                             [(i, (i + 1) %% p) for i in range(p)])
         records.append(dict(kind=kind, impl="ppermute", axis=axis,
                             ok=bool(torch.all(got == (me - 1) %% p))))
-dist.destroy_process_group()
 with open(f"{out}/rank{rank}.json", "w") as f:
     json.dump(records, f)
+leave(*meshes)
 """
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -147,26 +139,7 @@ def reference(reference_path):
 @pytest.fixture(scope="module")
 def port_records(reference_path, tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
-    script = out / "worker.py"
-    script.write_text(WORKER % (KINDS,))
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
-                               reference_path, str(out)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(4)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    torch_ranks.spawn(WORKER % (KINDS,), 4, [reference_path, out], out)
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(4)]
 
 

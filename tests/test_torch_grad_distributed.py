@@ -25,15 +25,12 @@ spawn of 4 torch ranks (gloo, CPU tensors) then runs:
 
 import dataclasses
 import json
-import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-from conftest import SRC, run_multidevice
+import torch_ranks
+from conftest import run_multidevice
 
 N = 16
 GRAD_TOL = 1e-4      # tests/test_grad.py:110,141,147,205
@@ -97,14 +94,14 @@ print("OK reference")
 WORKER = r"""
 import dataclasses, json, sys
 import numpy as np, torch, torch.distributed as dist
+from torch_ranks import join, leave
 from repro_torch.core import (Croft3D, Decomposition, FFTOptions, fft3d,
                               make_mesh, rfft3d)
 from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.distributed import scheduled_fft3d
 from repro_torch.grad import vjp
 rank, port, npz, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=4)
+join(rank, port, 4)
 ref = np.load(npz)
 N = ref["x1"].shape[-1]
 t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
@@ -287,16 +284,10 @@ cached = sum(c.cache_info().currsize for c in vjp._CACHES)
 plan.release()
 records.append(dict(check="release", before=cached,
                     after=sum(c.cache_info().currsize for c in vjp._CACHES)))
-dist.destroy_process_group()
 with open(f"{out}/rank{rank}.json", "w") as f:
     json.dump(records, f)
+leave(mesh)
 """
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -309,26 +300,7 @@ def reference_path(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port_records(reference_path, tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
-    script = out / "worker.py"
-    script.write_text(WORKER)
-    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
-                               reference_path, str(out)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(4)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    torch_ranks.spawn(WORKER, 4, [reference_path, out], out)
     return [json.loads((out / f"rank{r}.json").read_text()) for r in range(4)]
 
 

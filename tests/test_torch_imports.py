@@ -41,6 +41,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
     assert f"{len(_port_modules()) + 1} modules" in proc.stdout
     assert "repro_torch.tuning.planner" in _port_modules()
+    assert {"repro_torch.serve.service", "repro_torch.serve.plan_cache",
+            "repro_torch.serve.batcher", "repro_torch.serve.request",
+            "repro_torch.resil.degrade",
+            "repro_torch.train.fault"} <= set(_port_modules())
 
 
 def _imported_roots(path: str) -> set:
@@ -59,6 +63,7 @@ def _imported_roots(path: str) -> set:
     "chip_smoke.py",
     "examples/quickstart_torch.py",
     "examples/spectral_solver_torch.py",
+    "examples/serve_transforms_torch.py",
 ])
 def test_script_imports_nothing_of_jax_or_repro(path):
     roots = _imported_roots(os.path.join(REPO, path))

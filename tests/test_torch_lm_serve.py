@@ -175,8 +175,15 @@ def test_serve_cli_and_its_refusals(capsys):
                       "--batch", "2", "--prompt-len", "8", "--gen-len", "4"])
     assert gen.shape == (2, 4) and gen.dtype == np.int32
     assert "prefill:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.main([])
+    # without --arch the transform service runs (on the CPU when asked;
+    # without --device it wants the card)
+    stats = serve.main(["--device", "cpu", "--shape", "8,8,8",
+                        "--requests", "6"])
+    assert stats["requests"] == 6 and stats["pending"] == 0
+    assert "served 6 requests" in capsys.readouterr().out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main([])
     with pytest.raises(NotImplementedError, match="item 10"):
         serve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu"])
 

@@ -23,15 +23,12 @@ gradient of this plan fails, so it is not the oracle here).
 """
 
 import json
-import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-from conftest import SRC, run_multidevice
+import torch_ranks
+from conftest import run_multidevice
 from repro.tuning import cost_model as ref_cost
 
 N = 16
@@ -110,6 +107,7 @@ def sent_bytes_model(plan):
 WORKER = r"""
 import json, os, sys
 import numpy as np, torch, torch.distributed as dist
+from torch_ranks import join, leave
 from repro_torch import tuning
 from repro_torch.core import Croft3D, Decomposition, FFTOptions, make_mesh
 from repro_torch.obs import metrics
@@ -118,8 +116,7 @@ from repro_torch.tuning import cost_model
 %s
 rank, port, npz, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 N, KINDS, PICKS, CONSTANTS = %d, %r, %r, %r
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=4)
+join(rank, port, 4)
 ref = np.load(npz)
 rec = {"rank": rank}
 meshes = {kind: make_mesh(sizes, names, device="cpu")
@@ -248,22 +245,22 @@ want = ref["y"][plan.batched_sharding("output")]
 rec["batched"] = dict(
     err=float(np.abs(yb.numpy() - want).max() / np.abs(ref["y"]).max()),
     bitwise=bool(torch.equal(yb, ys)))
-dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
     json.dump(rec, f)
+leave(*meshes.values())
 """
 
 WORKER_MIXED = r"""
 import json, os, sys
 import numpy as np, torch, torch.distributed as dist
+from torch_ranks import join, leave
 from repro_torch.core import Croft3D, make_mesh
 from repro_torch.tuning import cost_model
 from repro_torch.tuning.candidates import ScheduleCandidate
 %s
 rank, port, npz, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 shape, key = %r, %r
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=8)
+join(rank, port, 8)
 ref = np.load(npz)
 mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
 plan = Croft3D(shape, mesh, schedule=ScheduleCandidate.from_plan_key(key))
@@ -291,40 +288,15 @@ rec = dict(
     bytes=c["collective_bytes"], model=plan.comm_bytes_model(),
     sent=sent_bytes_model(plan), grad_ok=grad_ok,
     grad_err=float(np.abs(xg.grad.numpy() - 2 * n * xl.numpy()).max()))
-dist.destroy_process_group()
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
     json.dump(rec, f)
+leave(mesh)
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(script_text, ranks, npz, out):
-    script = out / "worker.py"
-    script.write_text(script_text)
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=SRC + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    port = str(_free_port())
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
-                               npz, str(out)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(ranks)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    torch_ranks.spawn(script_text, ranks, [npz, out], out,
+                      env={"OMP_NUM_THREADS": "1"})
     return [json.loads((out / f"rank{r}.json").read_text())
             for r in range(ranks)]
 
