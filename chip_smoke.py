@@ -117,12 +117,40 @@ into ``build/``, then runs:
    race's wisdom plan against ``torch.fft.rfftn``'s slice (5e-5 *
    max|ref|), and one gradient of the c2c_grad race's wisdom plan
    against Parseval's 2 N x (1e-3 of max|ref|); phase 6's own seconds;
-7. one JSON line on the kernels, the card's name and power limit, and
+7. the transform service (``repro_torch.serve``): (7a) meshless at
+   512^3, ``transforms_main``'s mix and inverse requests against
+   ``torch.fft``, then one croft-1024 request; (7b) SPMD on 4 gloo ranks
+   at 256^3 with a wisdom file of ``pallas`` plans: upgrade, eviction,
+   ``exec.output`` quarantine, the batching gate;
+8. per-stage overlap attribution (``repro_torch.obs.instrument``) on
+   phase 3's 4 gloo ranks at 256^3 under one tracer: ``trace_forward``
+   of the acceptance plans ``alltoall-k2`` and ``ring-k1`` (both
+   ``local_impl="pallas"``) and a ``Croft3D.tuned(mode="model")`` plan,
+   each output against ``plan.forward`` (5e-4 * max|ref|), every rank's
+   summary equal, one row per schedule stage, an efficiency in [0, 1]
+   for both acceptance plans, round 1 timed on each ring stage; then
+   rank 0 serves 5 ragged requests (``max_batch`` 4) meshless under the
+   same tracer and saves it to ``build/phase8_trace.json``, which
+   must pass the trace smoke's checks (``benchmarks/trace_smoke.py``:
+   schema, one stage span per stage, the five lifecycle spans, both
+   efficiencies) and render with ``repro_torch.obs.report``, whose
+   per-stage tables are printed; C and the efficiencies are gloo's;
+9. the FNet spectral mixer (``repro_torch.models.spectral``): (9a) the
+   fnet-350m encoder forward at full width and depth (24 layers, bf16,
+   weights drawn on the card from the seed) at prefill_32k's sequence of
+   32768 and batch 2 (cut from 32): wall, profiled device time by
+   kernel, peak memory, finite logits; (9b, in phase 8's ranks)
+   ``distributed_seq_fft`` over the 2x2 mesh at (2, 4096, 1024)
+   against the local ``spectral_mixer`` (2e-4 * max|ref|); (9c)
+   ``examples/serve_lm_torch.py``'s service path, 4 users x 2 mixer
+   layers at 4096 x 1024, against the direct call;
+10. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
-3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, and 6c; in
-3g and 5 before each backward too) and read just after it.
+3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, 6c, 7a,
+7b, 8, 9a's timed forward and 9c; in 3g and 5 before each backward too)
+and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -2494,6 +2522,316 @@ def phase_service(dev) -> dict:
     return dict(counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: per-stage overlap attribution on 4 gloo ranks of the one card
+# ---------------------------------------------------------------------------
+
+TRACE_ITERS = 3        # timed runs of every stage, leg and round
+TRACE_N = 64           # the meshless service run's grid (5 ragged requests)
+SERVE_SPANS = ("request:submit", "request:queue", "batch:dispatch",
+               "batch:compute", "batch:d2h")   # benchmarks/trace_smoke.py
+SEQ_SHAPE = (2, 4096, 1024)  # phase 9b's (B, S, D): fnet-350m's width
+SEQ_TOL = 2e-4         # tests/test_parallel.py:126
+FNET = "fnet-350m"     # src/repro/configs/fnet_350m.py
+FNET_BATCH = 2         # prefill_32k's batch 32, cut for time and memory
+FNET_SEQ = 32768       # prefill_32k's sequence (src/repro/configs/shapes.py)
+
+
+def worker_trace(rank: int, port: int, wdir: str) -> None:
+    """One rank of phase 8, then of 9b: ``trace_forward`` of the two
+    acceptance plans (``pallas``) and a model-tuned plan at 256^3 on a
+    pencil 2x2 mesh under one tracer, each output against
+    ``plan.forward``; rank 0 then drives a short meshless service run
+    under the same tracer and saves the trace.  Then the FNet mixer's
+    sequence FFT over the mesh against the local mixer.  Prints its
+    result as a JSON line."""
+    import torch
+    from repro_torch.core import Croft3D, Decomposition, FFTOptions, make_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.spectral import spectral_mixer
+    from repro_torch.obs import instrument
+    from repro_torch.obs import tracer as tracer_lib
+    from repro_torch.serve import TransformService
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    join_ranks(rank, port, RANKS)
+    mesh = make_mesh((2, 2), ("y", "z"), device=dev)
+    shape = (DIST,) * 3
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn(shape, dtype=torch.complex64, device=dev, generator=gen)
+    pencil = Decomposition("pencil", ("y", "z"))
+    plans = [(label, Croft3D(shape, mesh, pencil, FFTOptions(
+        overlap_k=k, transpose_impl=impl, output_layout="spectral",
+        local_impl="pallas")))
+        for label, impl, k in (("alltoall-k2", "alltoall", 2),
+                               ("ring-k1", "ring", 1))]
+    plans.append(("tuned-256", Croft3D.tuned(shape, mesh, mode="model")))
+    res = {"rank": rank, "plans": {}}
+    tracer = tracer_lib.enable()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    for label, plan in plans:
+        xl = x[plan.input_sharding].contiguous()
+        y, summary = instrument.trace_forward(plan, xl, tracer=tracer,
+                                              iters=TRACE_ITERS, label=label)
+        with torch.no_grad():
+            want = plan.forward(xl)
+        res["plans"][label] = dict(
+            summary=summary, n_stages=len(plan._forward_schedule().stages),
+            err=((y - want).abs().max() / want.abs().max()).item())
+    res["trace_s"] = time.monotonic() - t0
+    res["launches"] = launch_counts()
+    res["host_staged_bytes"] = mesh.host_staged_bytes
+    if rank == 0:
+        g = torch.Generator().manual_seed(SEED)
+        payloads = [torch.randn((TRACE_N,) * 3, dtype=torch.complex64,
+                                generator=g).numpy() for _ in range(5)]
+        with TransformService(device=dev, max_batch=SERVE_BATCH,
+                              max_wait_ms=2.0) as svc:
+            futs = [svc.submit(p) for p in payloads]
+            got = [f.result(timeout=TIMEOUT_S) for f in futs]
+        check(all(r.ok for r in got), "phase 8 service run failed: "
+              + str([r.error for r in got if not r.ok]))
+        res["served"] = [r.batch_size for r in got]
+        tracer.save(os.path.join(wdir, "trace.json"))
+    tracer_lib.disable()
+
+    # 9b: the FNet sequence FFT over the mesh (batch over y, sequence over
+    # z, as tests/test_parallel.py:116-126) against the local mixer
+    b, s, d = SEQ_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    xs = torch.randn(SEQ_SHAPE, device=dev, generator=gen)
+    ref = spectral_mixer(xs)
+    c = mesh.coords
+    bl, sl = b // 2, s // 2
+    blk = (slice(bl * c["y"], bl * (c["y"] + 1)),
+           slice(sl * c["z"], sl * (c["z"] + 1)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = spectral_mixer(xs[blk].contiguous(), seq_axis_name="z", mesh=mesh,
+                         batch_spec="y")
+    torch.cuda.synchronize()
+    res["seq_ms"] = (time.perf_counter() - t0) * 1e3
+    res["seq_err"] = ((got - ref[blk]).abs().max() / ref.abs().max()).item()
+    res["seq_shape"] = list(got.shape)
+    print("RESULT_TRACE " + json.dumps(res, default=str), flush=True)
+    leave_ranks(mesh)
+
+
+def validate_trace(doc: dict, expected: dict) -> list:
+    """The trace smoke's checks (``benchmarks/trace_smoke.py:_validate``):
+    the schema of every event, one distinct per-stage span per schedule
+    stage of each traced plan, the service's lifecycle spans, and an
+    overlap efficiency for both acceptance plans; returns the failures."""
+    from repro_torch.obs import CATEGORIES
+    fails = []
+    events = doc.get("traceEvents")
+    if not isinstance(events, list) or not events:
+        return ["traceEvents missing or empty"]
+    for ev in events:
+        if ev.get("ph") not in ("X", "i"):
+            fails.append(f"bad ph in {ev}")
+        elif not isinstance(ev.get("name"), str) or not ev["name"]:
+            fails.append(f"bad name in {ev}")
+        elif ev.get("cat") not in CATEGORIES:
+            fails.append(f"unknown category {ev.get('cat')!r}")
+        elif not isinstance(ev.get("ts"), (int, float)) or ev["ts"] < 0:
+            fails.append(f"bad ts in {ev['name']}")
+        elif "pid" not in ev or "tid" not in ev:
+            fails.append(f"missing pid/tid in {ev['name']}")
+        elif ev["ph"] == "X" and ev.get("dur", -1) < 0:
+            fails.append(f"bad dur in {ev['name']}")
+        if fails:
+            break  # one schema failure is enough signal
+    for label, n_stages in expected.items():
+        got = {ev["args"].get("stage") for ev in events
+               if ev.get("ph") == "X"
+               and ev.get("args", {}).get("part") == "stage"
+               and ev.get("args", {}).get("plan") == label}
+        if len(got) != n_stages:
+            fails.append(f"{label}: {len(got)} stage spans, schedule has "
+                         f"{n_stages} stages")
+    names = {ev["name"] for ev in events}
+    for need in SERVE_SPANS:
+        if need not in names:
+            fails.append(f"serve lifecycle span {need!r} missing")
+    plans = {s.get("plan"): s for s in
+             (doc.get("metadata") or {}).get("attribution") or []}
+    for label in ("alltoall-k2", "ring-k1"):
+        overall = (plans.get(label) or {}).get("overall") or {}
+        if not isinstance(overall.get("efficiency"), float):
+            fails.append(f"{label}: no overlap-efficiency in attribution")
+    return fails
+
+
+def phase_trace() -> tuple[dict, list]:
+    """Phase 8 (and 9b in the same ranks); returns phase 8's launches
+    and the ranks' results."""
+    import shutil
+    import tempfile
+    from repro_torch.obs import report
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as wdir:
+        outs = spawn_ranks("--worker-trace", RANKS, wdir)
+        path = os.path.join(ROOT, "build", "phase8_trace.json")
+        shutil.copyfile(os.path.join(wdir, "trace.json"), path)
+    results = _results(outs, "RESULT_TRACE", "8")
+    counts = Counter()
+    for res in results:
+        counts.update(res["launches"])
+    r0 = results[0]
+    for label, got in r0["plans"].items():
+        s = got["summary"]
+        check(all(r["plans"][label]["err"] < FFT3_TOL for r in results),
+              f"phase 8 {label}: trace_forward output vs plan.forward "
+              f"{[r['plans'][label]['err'] for r in results]}")
+        check(all(json.dumps(r["plans"][label]["summary"], sort_keys=True)
+                  == json.dumps(s, sort_keys=True) for r in results),
+              f"phase 8 {label}: the ranks' summaries differ")
+        check(len(s["stages"]) == got["n_stages"],
+              f"phase 8 {label}: {len(s['stages'])} rows, "
+              f"{got['n_stages']} stages")
+        for row in s["stages"]:
+            if row["comm_s"] > 0 and s["transpose_impl"] in ("ring",
+                                                             "pairwise"):
+                # every axis of the 2x2 mesh has P = 2: round 1 alone
+                check([r["round"] for r in row.get("rounds", [])] == [1],
+                      f"phase 8 {label} {row['name']}: rounds "
+                      f"{row.get('rounds')}")
+        if label in ("alltoall-k2", "ring-k1"):
+            eff = (s["overall"] or {}).get("efficiency")
+            check(eff is not None and 0.0 <= eff <= 1.0,
+                  f"phase 8 {label}: overlap efficiency {eff}")
+    with open(path) as f:
+        doc = json.load(f)
+    expected = {label: got["n_stages"] for label, got in r0["plans"].items()}
+    fails = validate_trace(doc, expected)
+    check(not fails, "phase 8 trace validation: " + "; ".join(fails))
+    print(f"[8] {RANKS} ranks, {DIST}^3, gloo on one card: per-stage "
+          f"attribution (slowest rank's medians of {TRACE_ITERS}; C and the "
+          "efficiency are gloo's and the host's)", flush=True)
+    check(report.main([path]) == 0, "repro_torch.obs.report failed")
+    for label, got in r0["plans"].items():
+        for row in got["summary"]["stages"]:
+            m = row["model"] or {}
+            print(f"[8] {label} {row['name']}: wall {row['wall_s'] * 1e3:.3f}"
+                  f" ms, F {row['fft_s'] * 1e3:.3f}, C "
+                  f"{row['comm_s'] * 1e3:.3f}, hidden "
+                  f"{row['hidden_s'] * 1e3:.3f} ms, eff "
+                  f"{row['measured_efficiency']}; model compute "
+                  f"{m.get('compute_s')}, collective {m.get('collective_s')},"
+                  f" eff {m.get('predicted_efficiency')}; rounds "
+                  f"{[round(r['wall_s'] * 1e3, 3) for r in row.get('rounds', [])]}"
+                  f" ms; counted {row['hlo']}", flush=True)
+        print(f"[8] {label} ({got['summary']['plan_key']}): e2e "
+              f"{got['summary']['e2e_s'] * 1e3:.3f} ms, overall "
+              f"{got['summary']['overall']}, max err vs forward "
+              f"{max(r['plans'][label]['err'] for r in results):.3e}",
+              flush=True)
+    print(f"[8] trace {path}: {len(doc['traceEvents'])} events, service "
+          f"batches {r0['served']}; traced in {r0['trace_s']:.1f} s; "
+          f"host-staged bytes a rank {r0['host_staged_bytes']}; launches "
+          f"{dict(counts)}; phase 8+9b {time.time() - t0:.1f} s", flush=True)
+    for name in ("fft4step", "rotate_blocks"):
+        check(counts.get(name, 0) > 0, f"{name} not launched in phase 8")
+    return dict(counts), results
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the FNet spectral mixer, fnet-350m at full width and depth
+# ---------------------------------------------------------------------------
+
+def phase_fnet(dev, trace_results: list) -> dict:
+    """9a: the fnet-350m encoder forward (24 layers, bf16, seeded weights)
+    at prefill_32k's sequence and batch 2: wall, device time by kernel,
+    peak memory, finite logits; 9b (run by phase 8's ranks): the
+    distributed sequence FFT against the local mixer; 9c: the mixer
+    served, ``examples/serve_lm_torch.py`` for 4 users.  Returns the
+    launch counts of 9a and 9c."""
+    import importlib.util
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, init_params
+    from repro_torch.train import cast_to_compute
+    from repro_torch.train.data import synth_tokens
+    t_phase = time.time()
+    cfg = get_config(FNET)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model, t_init = _wall(lambda: cast_to_compute(
+        init_params(cfg, gen, dev), cfg.dtype))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gib = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 2**30
+    tokens = torch.from_numpy(synth_tokens(
+        SEED, 0, FNET_BATCH, FNET_SEQ, cfg.vocab)).to(dev)
+
+    def run():
+        return forward(model, cfg, tokens, mode="train")[0]
+    logits, t_cold = _wall(run)
+    del logits
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    logits, t_warm = _wall(run)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(tuple(logits.shape) == (FNET_BATCH, FNET_SEQ, cfg.vocab)
+          and logits.dtype == torch.bfloat16,
+          f"phase 9a logits {tuple(logits.shape)} {logits.dtype}")
+    finite = bool(torch.isfinite(logits).all())
+    check(finite, "phase 9a: non-finite logits")
+    scale = max_abs(logits[0], step=4096)
+    del logits
+    torch.cuda.empty_cache()
+    print(f"[9a] {FNET} bf16, {cfg.n_layers} layers, {n_params} parameters "
+          f"({weight_gib:.2f} GiB), B {FNET_BATCH} x S {FNET_SEQ}: init "
+          f"{t_init:.0f} ms, forward {t_cold:.1f} ms cold, {t_warm:.1f} ms "
+          f"warm (host clock to a synchronize); peak {peak:.2f} GiB over "
+          f"{base:.2f} GiB resident; logits finite, max|logit| {scale:.3f}; "
+          f"launches {counts}", flush=True)
+    busy, _ = profile_device(lambda: run(), "9a", "encoder forward", 12)
+    print(f"[9a] device busy {busy:.1f} ms of a {t_warm:.1f} ms forward",
+          flush=True)
+
+    r0 = trace_results[0]
+    err = max(r["seq_err"] for r in trace_results)
+    check(all(r["seq_shape"] == [SEQ_SHAPE[0] // 2, SEQ_SHAPE[1] // 2,
+                                 SEQ_SHAPE[2]] for r in trace_results),
+          f"phase 9b block shapes {[r['seq_shape'] for r in trace_results]}")
+    check(err < SEQ_TOL, f"phase 9b: distributed mixer vs local {err}")
+    print(f"[9b] distributed_seq_fft at (B, S, D) = {SEQ_SHAPE} on {RANKS} "
+          f"gloo ranks (batch over y, sequence over z) vs spectral_mixer: "
+          f"max rel err {err:.3e} (tol {SEQ_TOL}); "
+          f"{max(r['seq_ms'] for r in trace_results):.1f} ms (slowest rank, "
+          f"host clock, gloo)", flush=True)
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_lm_torch", os.path.join(ROOT, "examples", "serve_lm_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = example.serve_users(users=4, layers=2, seq=SEQ_SHAPE[1],
+                              dmodel=SEQ_SHAPE[2], device=dev, seed=SEED)
+    t_serve = time.perf_counter() - t0
+    served = launch_counts()
+    counts = dict(Counter(counts) + Counter(served))
+    stats = got["stats"]
+    check(got["worst"] < 1e-2 * max(got["scale"], 1.0),
+          f"phase 9c: served vs direct {got['worst']} (scale {got['scale']})")
+    print(f"[9c] 4 users x 2 mixer layers ({SEQ_SHAPE[1]}x{SEQ_SHAPE[2]}) "
+          f"served on {got['device']}: max|served - direct| "
+          f"{got['worst']:.3e} (scale {got['scale']:.1f}); "
+          f"{stats['requests']} requests in {stats['batches']} batches, "
+          f"latency {stats['latency_ms']}; {t_serve:.1f} s; launches "
+          f"{served}", flush=True)
+    print(f"[9] phase 9 {time.time() - t_phase:.1f} s (9b in phase 8's "
+          f"ranks)", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2517,6 +2855,8 @@ def main() -> int:
     paths = [phase_full(dev), phase_real_full(dev), *phase_distributed(),
              phase_cell(), phase_serve(dev), phase_grad(dev), phase_tune(dev),
              phase_service(dev)]
+    trace_counts, trace_results = phase_trace()
+    paths += [trace_counts, phase_fnet(dev, trace_results)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
@@ -2566,6 +2906,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--worker-tune":
         worker_tune(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker-trace":
+        worker_trace(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--worker-service":
         worker_service(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

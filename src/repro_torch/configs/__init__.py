@@ -1,14 +1,17 @@
 """Config registry: ``get_config("<arch>")`` / ``--arch`` lookup.
 
 Port of ``repro/configs/__init__.py``.  The registry knows every arch of
-the reference; the port serves only the dense GQA model so far, and the
-other names raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+the reference; the port runs the dense GQA model and the FNet spectral
+encoder so far, and the other names raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
 import importlib
+
+from repro_torch.configs.shapes import (FFT_SHAPES, SHAPES, FFTShape,
+                                        ShapeSpec, shape_supported)
 
 ARCHS = {
     "mixtral-8x22b": None,
@@ -22,7 +25,7 @@ ARCHS = {
     "rwkv6-3b": None,
     "paligemma-3b": None,
     # bonus (beyond the assigned pool)
-    "fnet-350m": None,
+    "fnet-350m": "repro_torch.configs.fnet_350m",
 }
 
 ASSIGNED = [a for a in ARCHS if a != "fnet-350m"]
@@ -39,4 +42,5 @@ def get_config(arch: str, smoke: bool = False):
     return mod.smoke() if smoke else mod.full()
 
 
-__all__ = ["ARCHS", "ASSIGNED", "get_config"]
+__all__ = ["ARCHS", "ASSIGNED", "FFT_SHAPES", "SHAPES", "FFTShape",
+           "ShapeSpec", "get_config", "shape_supported"]

@@ -1,10 +1,30 @@
-"""The paper's FFT grid shapes (port of the ``FFT_SHAPES`` part of
-``repro/configs/shapes.py``; its LM input shapes come with the LM
-substrate's training and long-context ports)."""
+"""The assigned LM input-shape set (the same four cells for every arch)
+plus the paper's own FFT grid shapes.  Port of
+``repro/configs/shapes.py`` (a copy)."""
 
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    @property
+    def lowers_serve_step(self) -> bool:
+        return self.kind in ("prefill", "decode")
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,3 +40,14 @@ FFT_SHAPES = {
     "fft_1024": FFTShape("fft_1024", (1024, 1024, 1024)),
     "fft_4096": FFTShape("fft_4096", (4096, 4096, 4096)),
 }
+
+
+def shape_supported(cfg, shape: ShapeSpec) -> tuple[bool, str]:
+    """Skip rules (long_500k needs sub-quadratic attention; decode needs a
+    decoder)."""
+    if shape.kind == "decode" and not cfg.supports_decode:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.supports_long:
+        return False, ("pure full-attention arch: 500k dense decode "
+                       "out of scope (DESIGN.md §5 skip list)")
+    return True, ""

@@ -570,11 +570,16 @@ def _landing(pieces: list) -> torch.Tensor:
 
 
 def _ring_transpose(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
-                    concat_axis: int) -> Pending:
+                    concat_axis: int, round_cb=None) -> Pending:
     """P-1-round ring transpose: pack -> send -> unpack.  All P-1 rounds
     are posted at once — round s sends piece s to ``(idx + s) % P`` and
     receives from ``(idx - s) % P`` — and the received pieces are
-    reassembled with one fused rotation."""
+    reassembled with one fused rotation.
+
+    ``round_cb(s, piece)`` (the observability hook) is called on each
+    received piece once the exchange has completed and before the
+    unpack; it returns the piece, possibly wrapped, which then takes the
+    slot.  With ``round_cb=None`` nothing more is launched."""
     from repro_torch.kernels import transpose_pack
     p = mesh.axis_size(axis)
     idx = mesh.axis_index(axis)
@@ -586,8 +591,16 @@ def _ring_transpose(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
     sends = [(pieces[s], (idx + s) % p) for s in range(1, p)]
     recvs = [(buf[p - s], (idx - s) % p) for s in range(1, p)]
     wire = mesh.exchange(sends, recvs, axis)
-    return Pending([wire], lambda: transpose_pack.unpack_pieces(
-        buf, concat_axis, -idx))
+
+    def finish():
+        if round_cb is not None:
+            for s in range(1, p):
+                slot = buf[p - s]
+                piece = round_cb(s, slot)
+                if piece is not slot:
+                    slot.copy_(piece)
+        return transpose_pack.unpack_pieces(buf, concat_axis, -idx)
+    return Pending([wire], finish)
 
 
 def _pairwise_transpose(blk: torch.Tensor, mesh, axis: AxisName,
@@ -610,7 +623,8 @@ def _pairwise_transpose(blk: torch.Tensor, mesh, axis: AxisName,
 
 
 def _all_to_all(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
-                concat_axis: int, impl: str = "alltoall") -> Pending:
+                concat_axis: int, impl: str = "alltoall",
+                ring_round_cb=None) -> Pending:
     """Global transpose along one communicator, issued asynchronously.
 
     ``impl="alltoall"``  one fused collective (CROFT's MPI_Alltoall).
@@ -626,7 +640,8 @@ def _all_to_all(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
     if isinstance(axis, tuple):
         raise ValueError(f"{impl} transpose supports single mesh axes only")
     if impl == "ring":
-        return _ring_transpose(blk, mesh, axis, split_axis, concat_axis)
+        return _ring_transpose(blk, mesh, axis, split_axis, concat_axis,
+                               round_cb=ring_round_cb)
     return _pairwise_transpose(blk, mesh, axis, split_axis, concat_axis)
 
 
@@ -645,15 +660,41 @@ def stage_pre(blk: torch.Tensor, st: Stage, sign: int, opts, off: int = 0,
 
 
 def stage_comm(blk: torch.Tensor, st: Stage, opts, mesh,
-               off: int = 0) -> Pending:
+               off: int = 0, ring_round_cb=None) -> Pending:
     """The collective leg of one stage (the global transpose), issued
-    asynchronously; the counterpart of :func:`stage_pre`."""
+    asynchronously; the counterpart of :func:`stage_pre`.
+    ``ring_round_cb(round, piece)``, when given and the stage resolves to
+    the ring impl, is called on each of the P-1 received pieces so
+    ``repro_torch.obs`` can tag per-round spans."""
     return _all_to_all(blk, mesh, st.comm_axis, st.split_axis + off,
-                       st.concat_axis + off, stage_transpose_impl(st, opts))
+                       st.concat_axis + off, stage_transpose_impl(st, opts),
+                       ring_round_cb=ring_round_cb)
+
+
+def ring_round(blk: torch.Tensor, st: Stage, opts, mesh, rnd: int,
+               off: int = 0) -> torch.Tensor:
+    """One ring-transpose round of a comm stage, standalone: the fused
+    rotated pack, then round ``rnd``'s single exchange (send piece
+    ``rnd`` to ``(idx + rnd) % P``, receive from ``(idx - rnd) % P``).
+    Round 0 is the rank's own piece, with no wire traffic.  Returns the
+    received piece without placing it; production execution stays in
+    :func:`stage_comm`.  ``repro_torch.obs.instrument`` times ring stages
+    round by round with it; every rank of the communicator must call it
+    with the same ``rnd``."""
+    axis = st.comm_axis
+    pieces = _pack_pieces(blk, mesh, axis, st.split_axis + off)
+    if rnd == 0:
+        return pieces[0]
+    p = mesh.axis_size(axis)
+    idx = mesh.axis_index(axis)
+    got = torch.empty_like(pieces[rnd])
+    mesh.exchange([(pieces[rnd], (idx + rnd) % p)],
+                  [(got, (idx - rnd) % p)], axis).wait()
+    return got
 
 
 def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
-              off: int = 0, ctx=None) -> torch.Tensor:
+              off: int = 0, ctx=None, ring_round_cb=None) -> torch.Tensor:
     """Execute one stage on a local block (axis indices offset by ``off``
     for leading batch dims).  Owns the K-chunked overlap and the silent
     fallback to one chunk when ``chunk_axis`` is not divisible by K.
@@ -672,7 +713,7 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
         return stage_pre(c, st, sign, opts, off, ctx)
 
     def comm(c):
-        return stage_comm(c, st, opts, mesh, off)
+        return stage_comm(c, st, opts, mesh, off, ring_round_cb=ring_round_cb)
 
     if st.comm_axis is None:
         return pre(blk)  # nothing to overlap with: never chunked
@@ -695,17 +736,20 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
 
 
 def run_schedule(blk: torch.Tensor, sched: Schedule, opts, mesh,
-                 operands=None) -> torch.Tensor:
+                 operands=None, ring_round_cb=None) -> torch.Tensor:
     """Execute a schedule on this rank's local block.
 
     Leading batch axes are carried along unsharded: every axis index in
     the schedule is offset by ``blk.ndim - 3``.  ``operands`` supplies
     named blocks to ops that need them (the fused k-space filter).
+    ``ring_round_cb(round, piece)`` is the observability hook threaded to
+    every ring-impl transpose (see :func:`stage_comm`).
     """
     off = blk.ndim - 3
     ctx = dict(operands or {})
     for st in sched.stages:
-        blk = run_stage(blk, st, sched.sign, opts, mesh, off, ctx)
+        blk = run_stage(blk, st, sched.sign, opts, mesh, off, ctx,
+                        ring_round_cb=ring_round_cb)
     for op in sched.epilogue:
         blk = op.apply(blk, opts, ctx, off)
     # Fault plane: output poisoning.  The port runs eagerly, so the

@@ -37,6 +37,9 @@ def init_attn_cache(spec: AttentionSpec, batch: int, max_len: int, dtype,
 
 def init_layer_cache(spec: LayerSpec, batch: int, max_len: int, dtype,
                      device=None) -> dict:
+    if spec.mixer == "spectral" and spec.ffn != "rwkv_cm" \
+            and not spec.cross_attn:
+        return {}  # the FNet mixer keeps no state
     if spec.mixer != "attn" or spec.ffn == "rwkv_cm":
         raise NotImplementedError(f"{spec.mixer}/{spec.ffn} layer cache: "
                                   f"{LM_ITEM} (recurrent layers)")

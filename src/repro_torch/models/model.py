@@ -1,6 +1,7 @@
 """Model assembly: embedding -> stages of layer patterns -> logits.
 
-Port of ``repro/models/model.py`` for dense attention stacks.  The
+Port of ``repro/models/model.py`` for dense attention stacks and the
+parameter-free spectral (FNet) mixer (``models/spectral.py``).  The
 reference scans each stage's ``repeat`` groups over parameters stacked on
 a leading repeat axis; here a stage is an ``nn.ModuleList`` of its layers,
 group by group (layer ``t * len(pattern) + pi`` is pattern entry ``pi`` of
@@ -14,8 +15,8 @@ Three modes share one layer implementation:
   prefill  full sequence + writes the KV caches (serving cold start)
   decode   single token against the caches (serving steady state)
 
-Recurrent, spectral, MoE, MLA, cross-attention, encoder and prefix-embed
-paths, and the sharded context (``ShardCtx``), wait for their slices
+Recurrent, MoE, MLA, cross-attention, encoder and prefix-embed paths,
+and the sharded context (``ShardCtx``), wait for their slices
 (``ROADMAP.md`` queue 1 item 10) and raise ``NotImplementedError``.
 """
 
@@ -48,7 +49,7 @@ class Ctx(NamedTuple):
 def _unported(spec: LayerSpec) -> Optional[str]:
     """What of the layer this slice does not serve (MLA and the RWKV
     channel mix raise in their own ``init_*``)."""
-    if spec.mixer != "attn":
+    if spec.mixer not in ("attn", "spectral"):
         return f"mixer {spec.mixer!r}"
     if spec.cross_attn:
         return "cross-attention"
@@ -62,7 +63,8 @@ def _unported(spec: LayerSpec) -> Optional[str]:
 # --------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One layer: ``ln1``, the token mixer, ``ln2``, the channel mixer."""
+    """One layer: ``ln1``, the token mixer, ``ln2``, the channel mixer.
+    The spectral mixer has no parameters (``mixer`` is None)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, generator=None,
                  device=None):
@@ -73,7 +75,9 @@ class Layer(nn.Module):
         d = cfg.d_model
         self.ln1 = L.init_norm(cfg.norm, d, device)
         self.ln2 = L.init_norm(cfg.norm, d, device)
-        self.mixer = attn_lib.init_attention(d, spec.attn, generator, device)
+        self.mixer = (None if spec.mixer == "spectral" else
+                      attn_lib.init_attention(d, spec.attn, generator,
+                                              device))
         self.ffn = L.init_ffn(d, cfg.d_ff, spec.ffn, generator, device)
 
 
@@ -107,7 +111,11 @@ def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
     """-> (x, cache).  The reference's third output, the MoE auxiliary
     loss, is zero for the dense layers of this slice and is dropped."""
     h = L.norm_fwd(p.ln1, x, cfg.norm, cfg.norm_eps)
-    y, cache = _self_attention(p, h, spec, cfg, ctx, cache)
+    if spec.mixer == "spectral":
+        from repro_torch.models.spectral import spectral_mixer
+        y = spectral_mixer(h)
+    else:
+        y, cache = _self_attention(p, h, spec, cfg, ctx, cache)
     x = x + y
     h2 = L.norm_fwd(p.ln2, x, cfg.norm, cfg.norm_eps)
     return x + L.ffn_fwd(p.ffn, h2, spec.ffn), cache

@@ -1,6 +1,7 @@
-"""repro_torch.obs — span tracing and metrics (port of ``repro.obs``).
+"""repro_torch.obs — stage-level tracing, metrics and overlap attribution
+(port of ``repro.obs``).
 
-Two pieces, copies of the reference's pure-Python modules:
+Three pieces:
 
   * :mod:`repro_torch.obs.tracer` — thread-safe span tracer with
     Chrome-trace JSON export and an in-process ring buffer; a no-op
@@ -9,6 +10,12 @@ Two pieces, copies of the reference's pure-Python modules:
   * :mod:`repro_torch.obs.metrics` — named counters, gauges and
     log-bucketed histograms with quantile estimation; JSON snapshots and
     Prometheus text exposition.
+  * :mod:`repro_torch.obs.instrument` / :mod:`repro_torch.obs.report` —
+    re-drive a plan's schedule stage by stage with host-side timing
+    shims, attach the collectives ``Mesh.counting()`` counts, and join
+    the measured per-stage timings against the analytic cost model
+    (``python -m repro_torch.obs.report trace.json``) to produce the
+    overlap-efficiency table the paper's 42–51 % hiding claim is about.
 
 The tuner reads the collective calibration gauges and writes its
 ``tune_*`` and ``wisdom_corrupt_files`` counters here, and wraps its

@@ -632,3 +632,47 @@ def test_model_constructors_default_to_the_card(cuda_device):
         assert all(p.device.type == "cuda" for p in model.parameters())
     caches = init_caches(cfg, 1, 8)
     assert caches[0][0]["self"]["k"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_fnet_forward_on_the_card_matches_the_cpu(cuda_device):
+    """The fnet-350m smoke model (the spectral mixer's DFT products on
+    cuBLAS) on the card against the same weights and tokens on the CPU,
+    float32, within 2e-4·max|ref|; it launches none of the kernels."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    cfg = dataclasses.replace(get_config("fnet-350m", smoke=True),
+                              dtype="float32")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 256),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = forward(model, cfg, tokens)
+    before = launch_counts()
+    got, _ = forward(model.to(cuda_device), cfg, tokens.to(cuda_device))
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= TF_TOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_trace_forward_meshless_on_the_card(cuda_device):
+    """A meshless plan on the card gets the e2e span and the note, and
+    ``y`` is the production forward's, bitwise."""
+    from repro_torch import obs
+    from repro_torch.core import Croft3D, FFTOptions
+    from repro_torch.obs import instrument
+    plan = Croft3D((64, 64, 64), opts=FFTOptions(local_impl="pallas"))
+    x = torch.randn((64, 64, 64), dtype=torch.complex64, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(2))
+    tracer = obs.enable()
+    try:
+        y, summary = instrument.trace_forward(plan, x, tracer=tracer)
+        names = [e["name"] for e in tracer.events()]
+    finally:
+        obs.disable()
+    assert names == ["e2e"] and summary["stages"] == []
+    assert summary["e2e_s"] > 0 and "note" in summary
+    with torch.no_grad():
+        assert torch.equal(y, plan.forward(x))
