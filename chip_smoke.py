@@ -34,7 +34,10 @@ into ``build/``, then runs:
    timed beside its plain version and one
    ``scaled_dot_product_attention`` call with the causal-window mask, and
    each variant's time and launches there (the bf16 tensor-core kernel;
-   the FFMA kernel in float32);
+   the FFMA kernel in float32); then mixtral-8x22b's prefill and
+   teacher-forcing shapes (B 2, S 6144 and 6145, 48 heads over 8,
+   head_dim 128, window 4096, bf16), held the same way, on the
+   tensor-core kernel;
 2. the main path on one rank at full size: ``Croft3D`` forward and
    inverse of the croft-1024 grid (1024^3 complex64, an 8 GiB field)
    with ``local_impl="pallas"``, checked against ``torch.fft.fftn``
@@ -144,13 +147,40 @@ into ``build/``, then runs:
    against the local ``spectral_mixer`` (2e-4 * max|ref|); (9c)
    ``examples/serve_lm_torch.py``'s service path, 4 users x 2 mixer
    layers at 4096 x 1024, against the direct call;
-10. one JSON line on the kernels, the card's name and power limit, and
+10. MLA, the latent cache and the MoE FFN (``repro_torch.models.moe``):
+   (10a) deepseek-v2-236b at full width, depth cut to the dense layer 0
+   and 3 MoE layers (13.3e9 parameters, bf16, weights drawn on the card
+   from the seed): ``make_serve_steps`` prefill of a 2 x 4096
+   ``synth_tokens`` prompt and 32 greedy tokens (MLA on the plain
+   blockwise core: its head dims are past the kernel's), finite logits;
+   wall, profiled device time by kernel of the prefill and of one decode
+   step, peak memory, the pairs the MoE layers drop at the config's
+   capacity (with each layer's most-loaded expert over the mean load and
+   the mean cosine of its hidden states to their mean); then, on the same weights at capacity factor 16 (where no
+   pair drops: a decode step never drops, so teacher forcing holds only
+   there), a prefill whose first decode step is within 5e-2 * max|ref|
+   of the bf16 train pass over the prompt and its first token, and a
+   float32 teacher-forcing check at full width with 1 dense + 1 MoE
+   layer and S = 1024 (2e-4 * max|ref|); (10b) mixtral-8x22b at full
+   width, 4 layers (cut from 56): prefill 2 x 6144 (past the 4096-token
+   window) and 32 tokens, 4 ``flash_attention`` launches in the prefill,
+   all on the bf16 tensor-core variant, none in the decode, layer 0's
+   prefill q, k, v held against the plain version as in 1c, the same
+   5e-2 check at capacity factor 4 (E / top_k: the capacity is the token
+   count); (10c) the expert-parallel dispatch
+   (``moe_fwd_sharded``, mode "ep") on 4 gloo ranks on the one card, a
+   (data 1, model 4) mesh at deepseek's expert widths (160 experts, d
+   5120, f 1536, top-6, 2 shared), float32, capacity factor 16, (1, 256)
+   tokens a rank: each rank's output within 1e-5 * max|ref| of its slice
+   of the meshless ``moe_fwd``, its counted collectives;
+11. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
 3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, 6c, 7a,
-7b, 8, 9a's timed forward and 9c; in 3g and 5 before each backward too)
-and read just after it.
+7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a and
+10b, 10c's dispatch; in 3g and 5 before each backward too) and read just
+after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -898,6 +928,30 @@ def phase_attention_kernel(dev) -> dict:
           f"sdpa {out['flash_attention']['library_ms']:.3f} ms, bound "
           f"{b_ms:.3f} ms", flush=True)
     del q, k, v, mask, q32, k32, v32
+    # mixtral-8x22b's prefill (phase 10b) and its teacher-forcing train
+    # pass: 48 query heads over 8 (group 6) at head_dim 128
+    b, h, kv, d, window = 2, 48, 8, 128, 4096
+    for s in (MX_PROMPT, MX_PROMPT + 1):
+        q = (torch.randn(b, s, h, d, device=dev, generator=gen)
+             * d ** -0.5).to(torch.bfloat16)
+        k, v = (torch.randn(b, s, kv, d, device=dev,
+                            generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        got = fa.flash_attention(q, k, v, causal=True, window=window,
+                                 scale=1.0)
+        want = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                        scale=1.0)
+        err, share = attention_err(got, want)
+        print(f"[1c] flash_attention at mixtral's shape ({b}, {s}, {h}, {d}) "
+              f"kv={kv} window={window} bf16: max_abs_err={err:.3e}, worst "
+              f"err/tol {share:.3f}", flush=True)
+        check(share <= 1.0 and bool(torch.isfinite(got).all()),
+              f"flash_attention at mixtral's shape {(b, s, h, kv, d)}")
+        check(fa.variant(q, k, v) == fa.TC,
+              f"mixtral's shape {(b, s, h, kv, d)} is not on wgmma")
+        out["flash_attention"]["max_abs_err"] = max(
+            out["flash_attention"]["max_abs_err"], err)
+        del q, k, v, got, want
     torch.cuda.empty_cache()
     return out
 
@@ -2832,6 +2886,414 @@ def phase_fnet(dev, trace_results: list) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: MLA, the latent cache and the MoE FFN
+# ---------------------------------------------------------------------------
+
+DS = "deepseek-v2-236b"   # src/repro/configs/deepseek_v2_236b.py
+DS_MOE_LAYERS = 3         # MoE layers after the dense layer 0 (cut from 59)
+DS_PROMPT = 4096          # 10a's prompt (the model has full attention)
+DS_TF_SEQ = 1024          # 10a's float32 teacher-forcing sequence
+MX = "mixtral-8x22b"      # src/repro/configs/mixtral_8x22b.py
+MX_LAYERS = 4             # cut from 56
+MX_PROMPT = 6144          # past the model's 4096-token window
+# teacher forcing holds only where no (token, choice) pair is dropped: a
+# decode step routes 2 tokens and never drops, while at the configs' own
+# factor 1.25 a train pass over the seeded weights drops most pairs (the
+# hidden states share a direction that the random routers all favour).
+# The checks run the same weights at capacity factor 16
+# (tests/test_models_smoke.py:68-77), or E/top_k where that already makes
+# the capacity the token count, and read the dropped pairs: none
+TF_CAPACITY = 16.0
+EP_TOKENS = 256           # 10c's tokens a rank
+EP_TOL = 1e-5             # tests/test_perf_paths.py:64 (x max|ref| here)
+
+
+def _moe_cut(arch: str, moe_layers: int, capacity_factor=None,
+             dtype=None):
+    """``arch``'s config at full width with ``moe_layers`` MoE layers (after
+    deepseek's dense layer 0), optionally at another capacity factor and
+    compute dtype."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Stage
+    cfg = get_config(arch)
+    stages = list(cfg.stages)
+    spec = stages[-1].pattern[0]
+    if capacity_factor is not None:
+        spec = dataclasses.replace(spec, moe=dataclasses.replace(
+            spec.moe, capacity_factor=capacity_factor))
+    stages[-1] = Stage((spec,), moe_layers)
+    return dataclasses.replace(cfg, stages=tuple(stages),
+                               dtype=dtype or cfg.dtype)
+
+
+def _tf_capacity(arch: str) -> float:
+    """The teacher-forcing checks' capacity factor (see TF_CAPACITY)."""
+    m = _moe_cut(arch, 1).stages[-1].pattern[0].moe
+    return min(TF_CAPACITY, m.n_experts / m.top_k)
+
+
+class _DroppedPairs:
+    """Reads each ``moe_fwd`` inside the scope by wrapping ``moe._dispatch``:
+    the (token, choice) pairs it drops at capacity, its most-loaded
+    expert's pairs over the mean load, and the mean cosine of its hidden
+    states to their mean direction (all stay on the card until read).
+    ``check_calls`` fails unless the wrapper saw the expected number of
+    dispatches, so that a run that stopped reaching it checks nothing."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe as moe_lib
+        self._lib, self._inner = moe_lib, moe_lib._dispatch
+        self.sums, self.load, self.cos = [], [], []
+
+        def dispatch(xt, router, m, cap):
+            buf, meta = self._inner(xt, router, m, cap)
+            keep, slot = meta[0], meta[1]
+            self.sums.append((~keep).sum())
+            hits = torch.bincount(slot // cap, minlength=m.n_experts)
+            self.load.append(hits.max() * m.n_experts / slot.numel())
+            u = torch.nn.functional.normalize(xt.float(), dim=-1)
+            self.cos.append(
+                (u @ torch.nn.functional.normalize(u.mean(0), dim=0)).mean())
+            return buf, meta
+        moe_lib._dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._lib._dispatch = self._inner
+
+    def check_calls(self, want: int, tag: str) -> None:
+        check(len(self.sums) == want, f"phase {tag}: {len(self.sums)} MoE "
+              f"dispatches seen, {want} expected")
+
+    def per_layer(self) -> list:
+        return [int(t) for t in self.sums]
+
+    def skew(self) -> str:
+        return (f"most-loaded expert / mean load "
+                f"{[round(float(t), 2) for t in self.load]}, mean cosine of "
+                f"the hidden states to their mean "
+                f"{[round(float(t), 3) for t in self.cos]}")
+
+
+class _FirstAttention:
+    """Keeps a copy of the first ``flash_attention`` call that the
+    attention layer makes inside the scope (layer 0's q, k, v and options)
+    and counts its calls, by wrapping the name ``models.attention`` calls."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self._lib, self._inner = attention, attention.flash_attention
+        self.calls, self.first = 0, None
+
+        def flash_attention(q, k, v, **kw):
+            if self.first is None:
+                self.first = ((q.clone(), k.clone(), v.clone()), kw)
+            self.calls += 1
+            return self._inner(q, k, v, **kw)
+        attention.flash_attention = flash_attention
+        return self
+
+    def __exit__(self, *exc):
+        self._lib.flash_attention = self._inner
+
+    def check_first(self, tag: str) -> None:
+        """The wrapper on the captured inputs against the plain version,
+        element by element (``attention_err``), on the wgmma variant."""
+        import torch
+        from repro_torch.kernels import flash_attention as fa
+        (q, k, v), kw = self.first
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err, share = attention_err(got, want)
+        print(f"[{tag}] flash_attention on layer 0's prefill inputs "
+              f"{tuple(q.shape)} kv={k.shape[2]} {kw}: max_abs_err "
+              f"{err:.3e}, worst err/tol {share:.3f}", flush=True)
+        check(share <= 1.0 and bool(torch.isfinite(got).all()),
+              f"phase {tag}: flash_attention on layer 0's inputs")
+        check(fa.variant(q, k, v) == fa.TC,
+              f"phase {tag}: layer 0's inputs are not on wgmma")
+        self.first = None
+
+
+def _serve_moe(dev, tag: str, arch: str, layers: int, prompt: int) -> tuple:
+    """Prefill a BATCH x ``prompt`` prompt and decode GEN greedy tokens on
+    ``arch`` cut to ``layers`` MoE layers (bf16, seeded weights, the
+    config's capacity), profile one prefill and one decode step; then, on
+    the same weights at the teacher-forcing capacity, a prefill and the
+    first decode step held against the bf16 train pass over the prompt
+    and its first token.  Returns the launches of the served prefill, of
+    its decode steps and of the teacher-forcing runs, and the attention
+    layer's ``flash_attention`` calls in the served prefill (the first
+    held against the plain version on its own inputs)."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.train import (cast_to_compute, greedy_sample,
+                                   make_serve_steps)
+    from repro_torch.train.data import synth_tokens
+    cfg = _moe_cut(arch, layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, t_init = _wall(lambda: cast_to_compute(
+        init_params(cfg, gen, dev), cfg.dtype))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gib = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 2**30
+    peak_init = torch.cuda.max_memory_allocated(dev) / 2**30
+    max_len = prompt + GEN
+    prefill, decode = make_serve_steps(cfg, BATCH, max_len, kv_block=KV_BLOCK,
+                                       device=dev)
+    prompts = synth_tokens(SEED, 0, BATCH, prompt, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats(dev)
+    caches = init_caches(cfg, BATCH, max_len, dtype=torch.bfloat16,
+                         device=dev)
+    reset_launch_counts()
+    with _DroppedPairs() as dropped, _FirstAttention() as attn:
+        (logits, caches), t_prefill = _wall(lambda: prefill(model, prompts,
+                                                            caches))
+    prefill_counts = launch_counts()
+    dropped.check_calls(layers, tag)
+    if attn.first is not None:
+        attn.check_first(tag)
+    finite = torch.isfinite(logits).all()
+    tok = greedy_sample(logits)[:, None]
+    out = [tok]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GEN - 1):
+        logits, caches = decode(model, tok, caches, prompt + i)
+        finite &= torch.isfinite(logits).all()
+        tok = greedy_sample(logits)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) * 1e3
+    decode_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    tokens = torch.cat(out, dim=1).cpu()
+    m = cfg.stages[-1].pattern[0].moe
+    print(f"[{tag}] {cfg.name} bf16, {cfg.n_layers} layers, {n_params} "
+          f"parameters ({weight_gib:.2f} GiB): init {t_init:.1f} ms, peak "
+          f"{peak_init:.2f} GiB (fp32 masters); prefill {BATCH}x{prompt} "
+          f"{t_prefill:.2f} ms (first call); decode {GEN - 1} steps "
+          f"{t_decode:.2f} ms ({t_decode / (GEN - 1):.2f} ms/step, "
+          f"{BATCH * (GEN - 1) / t_decode * 1e3:.1f} tok/s); peak "
+          f"{peak:.2f} GiB serving; pairs dropped per MoE layer of the "
+          f"prefill at capacity factor {m.capacity_factor} "
+          f"{dropped.per_layer()} of {BATCH * prompt * m.top_k} ("
+          f"{dropped.skew()}); launches "
+          f"prefill {prefill_counts} decode {decode_counts}; tokens "
+          f"{tokens[:, :8].tolist()}", flush=True)
+    check(bool(finite), f"non-finite logits in phase {tag}")
+    profile_device(lambda: prefill(model, prompts, caches), tag, "prefill",
+                   10)
+    profile_device(lambda: decode(model, tok, caches, prompt + GEN - 1), tag,
+                   "decode step", 8)
+    del caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # teacher forcing in bf16, same weights, no pair dropped: the first
+    # decode step == the train pass at ``prompt`` over the prompt and the
+    # first greedy token
+    tf_cfg = _moe_cut(arch, layers, _tf_capacity(arch))
+    prefill, decode = make_serve_steps(tf_cfg, BATCH, prompt + 1,
+                                       kv_block=KV_BLOCK, device=dev)
+    caches = init_caches(tf_cfg, BATCH, prompt + 1, dtype=torch.bfloat16,
+                         device=dev)
+    seq = torch.cat([torch.as_tensor(prompts, device=dev), out[0]], dim=1)
+    reset_launch_counts()
+    with _DroppedPairs() as dropped:
+        _, caches = prefill(model, prompts, caches)
+        first_decode, _ = decode(model, out[0], caches, prompt)
+        del caches
+        ref, _ = forward(model, tf_cfg, seq, mode="train", kv_block=KV_BLOCK)
+    tf_counts = launch_counts()
+    dropped.check_calls(3 * layers, tag)
+    ref = ref[:, prompt].float()
+    top = ref.abs().max().item()
+    err = (first_decode.float() - ref).abs().max().item()
+    lost = sum(dropped.per_layer())
+    print(f"[{tag}] teacher forcing bf16, {cfg.n_layers} layers, S={prompt}, "
+          f"capacity factor {_tf_capacity(arch):.4g}: decode vs train "
+          f"max_abs_err {err:.3e} ({err / top:.2e}·max|ref|), tol "
+          f"{BF16_TF_TOL * top:.3e}; pairs dropped (prefill, decode, train) "
+          f"{lost}; launches {tf_counts}", flush=True)
+    check(lost == 0, f"phase {tag}: teacher forcing dropped {lost} pairs")
+    check(err <= BF16_TF_TOL * top,
+          f"phase {tag}: bf16 teacher forcing decode err {err}")
+    del model, ref, first_decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prefill_counts, decode_counts, tf_counts, attn.calls
+
+
+def _teacher_forcing_f32(dev, tag: str, cfg, seq: int) -> None:
+    """Float32 teacher forcing: the decode logits at ``seq`` and the
+    prefill's against the train pass over seq + 1 tokens, 2e-4 of
+    max|ref|."""
+    import gc
+    import torch
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.train.data import synth_tokens
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    tokens = torch.as_tensor(synth_tokens(SEED, 1, BATCH, seq + 1, cfg.vocab),
+                             device=dev)
+    with _DroppedPairs() as dropped:
+        ref, _ = forward(model, cfg, tokens, mode="train", kv_block=KV_BLOCK)
+        caches = init_caches(cfg, BATCH, seq + 1, dtype=torch.float32,
+                             device=dev)
+        pre, caches = forward(model, cfg, tokens[:, :seq], mode="prefill",
+                              caches=caches, kv_block=KV_BLOCK)
+        dec, _ = forward(model, cfg, tokens[:, seq:], mode="decode",
+                         caches=caches, start=seq, kv_block=KV_BLOCK)
+    dropped.check_calls(3 * cfg.stages[-1].n_layers, tag)
+    lost = sum(dropped.per_layer())
+    top = ref.abs().max().item()
+    err = (dec[:, 0] - ref[:, seq]).abs().max().item()
+    err_pre = (pre - ref[:, :seq]).abs().max().item()
+    factor = cfg.stages[-1].pattern[0].moe.capacity_factor
+    print(f"[{tag}] teacher forcing f32, {cfg.n_layers} layers (capacity "
+          f"factor {factor:.4g}), S={seq}: decode vs train max_abs_err "
+          f"{err:.3e}, prefill vs train {err_pre:.3e}, tol "
+          f"{TF_TOL * top:.3e}; pairs dropped {lost}", flush=True)
+    check(lost == 0, f"phase {tag}: teacher forcing dropped {lost} pairs")
+    check(err <= TF_TOL * top, f"phase {tag}: f32 teacher forcing decode "
+          f"err {err}")
+    check(err_pre <= TF_TOL * top, f"phase {tag}: f32 teacher forcing "
+          f"prefill err {err_pre}")
+    del model, caches, ref, pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def worker_moe(rank: int, port: int) -> None:
+    """One rank of 10c: the "ep" dispatch at deepseek's expert widths on a
+    (data 1, model 4) mesh, against rank 0's meshless ``moe_fwd`` over all
+    ranks' tokens.  Each rank draws the full MoE from the seed in turn
+    (one full float32 copy on the card at a time) and keeps its block.
+    Prints its result as a JSON line."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import make_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.moe import init_moe, moe_fwd
+    from repro_torch.models.moe_sharded import (moe_fwd_sharded, moe_mode,
+                                                shard_moe)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    join_ranks(rank, port, RANKS)
+    mesh = make_mesh((1, RANKS), ("data", "model"), device=dev)
+    cfg = _moe_cut(DS, 1, TF_CAPACITY)
+    m, d = cfg.stages[-1].pattern[0].moe, cfg.d_model
+    x = torch.randn(1, RANKS * EP_TOKENS, d, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    ref = torch.empty(x.shape, dtype=torch.float32)
+    for r in range(RANKS):
+        if r == rank:
+            full = init_moe(d, m, torch.Generator(device=dev).manual_seed(
+                SEED + 10), dev)
+            if rank == 0:
+                ref = moe_fwd(full, x, m).cpu()
+            local = shard_moe(full, m, mesh, cp_axis="model",
+                              tp_axis="model")
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    dist.broadcast(ref, 0)
+    rows = slice(rank * EP_TOKENS, (rank + 1) * EP_TOKENS)
+    xl = x[:, rows].contiguous()
+
+    def run():
+        return moe_fwd_sharded(local, xl, m, mesh=mesh, cp_axis="model",
+                               tp_axis="model", overlap_k=2)
+    run()                                   # warm-up
+    dist.barrier()
+    reset_launch_counts()
+    with mesh.counting() as cnt:
+        got, ms = _wall(run)
+    launches = launch_counts()
+    err = (got.cpu() - ref[:, rows]).abs().max().item()
+    print("RESULT_MOE " + json.dumps(dict(
+        mode=moe_mode(m, mesh, "model", "model"), shape=list(got.shape),
+        w_gate=list(local.w_gate.shape), err=err,
+        top=ref.abs().max().item(), ms=ms, collectives=cnt.collectives,
+        launches=launches,
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)), flush=True)
+    leave_ranks(mesh)
+
+
+def phase_moe(dev) -> dict:
+    """10a deepseek-v2-236b, 10b mixtral-8x22b, 10c the ep dispatch;
+    returns the serving runs' launch counts."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = Counter()
+
+    pre, dec, tf, calls = _serve_moe(dev, "10a", DS, DS_MOE_LAYERS,
+                                     DS_PROMPT)
+    counts.update(pre)
+    counts.update(dec)
+    check(not pre and not dec and not tf and not calls,
+          f"phase 10a: MLA launched a kernel {pre} {dec} {tf} {calls}")
+    _teacher_forcing_f32(dev, "10a", _moe_cut(DS, 1, _tf_capacity(DS),
+                                               "float32"), DS_TF_SEQ)
+    print(f"[10a] {time.time() - t_phase:.1f} s", flush=True)
+
+    t0 = time.time()
+    pre, dec, tf, calls = _serve_moe(dev, "10b", MX, MX_LAYERS, MX_PROMPT)
+    counts.update(pre)
+    counts.update(dec)
+    check(calls == MX_LAYERS, f"phase 10b: {calls} flash_attention calls "
+          f"from the attention layer in the prefill, {MX_LAYERS} expected")
+    check(pre.get("flash_attention", 0) == MX_LAYERS
+          and pre.get(fa.TC, 0) == MX_LAYERS,
+          f"phase 10b prefill flash_attention launches {pre}")
+    check(dec.get("flash_attention", 0) == 0,
+          f"phase 10b decode flash_attention launches {dec}")
+    check(tf.get("flash_attention", 0) == 2 * MX_LAYERS
+          and tf.get(fa.TC, 0) == 2 * MX_LAYERS,
+          f"phase 10b teacher-forcing flash_attention launches {tf}")
+    print(f"[10b] {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    results = _results(spawn_ranks("--worker-moe", RANKS), "RESULT_MOE",
+                       "10c")
+    top = results[0]["top"]
+    cfg = _moe_cut(DS, 1)
+    m = cfg.stages[-1].pattern[0].moe
+    for r, res in enumerate(results):
+        check(res["mode"] == "ep"
+              and res["shape"] == [1, EP_TOKENS, cfg.d_model]
+              and res["w_gate"] == [m.n_experts // RANKS, cfg.d_model,
+                                    m.d_ff_expert],
+              f"phase 10c rank {r}: {res}")
+        check(res["err"] <= EP_TOL * top,
+              f"phase 10c rank {r}: ep dispatch vs moe_fwd {res['err']}")
+    print(f"[10c] ep dispatch, {RANKS} gloo ranks, (data 1, model "
+          f"{RANKS}), deepseek expert widths, {EP_TOKENS} tokens a rank, "
+          f"float32: max_abs_err {max(r['err'] for r in results):.3e} "
+          f"(tol {EP_TOL * top:.3e}); {max(r['ms'] for r in results):.1f} "
+          f"ms (slowest rank, host clock, gloo); collectives a rank "
+          f"{results[0]['collectives']}; launches "
+          f"{[r['launches'] for r in results]}; peak GiB a rank "
+          f"{[round(r['peak_gib'], 2) for r in results]}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    print(f"[10] phase 10 {time.time() - t_phase:.1f} s", flush=True)
+    return dict(counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2856,7 +3318,7 @@ def main() -> int:
              phase_cell(), phase_serve(dev), phase_grad(dev), phase_tune(dev),
              phase_service(dev)]
     trace_counts, trace_results = phase_trace()
-    paths += [trace_counts, phase_fnet(dev, trace_results)]
+    paths += [trace_counts, phase_fnet(dev, trace_results), phase_moe(dev)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
@@ -2909,6 +3371,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--worker-trace":
         worker_trace(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker-moe":
+        worker_moe(int(sys.argv[2]), int(sys.argv[3]))
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--worker-service":
         worker_service(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

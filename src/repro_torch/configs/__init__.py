@@ -1,9 +1,9 @@
 """Config registry: ``get_config("<arch>")`` / ``--arch`` lookup.
 
 Port of ``repro/configs/__init__.py``.  The registry knows every arch of
-the reference; the port runs the dense GQA model and the FNet spectral
-encoder so far, and the other names raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+the reference; the port runs the dense GQA model, the MoE models (MLA
+and GQA attention) and the FNet spectral encoder so far, and the other
+names raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ from repro_torch.configs.shapes import (FFT_SHAPES, SHAPES, FFTShape,
                                         ShapeSpec, shape_supported)
 
 ARCHS = {
-    "mixtral-8x22b": None,
-    "deepseek-v2-236b": None,
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
     "gemma3-4b": None,
     "yi-34b": None,
@@ -36,8 +36,8 @@ def get_config(arch: str, smoke: bool = False):
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     if ARCHS[arch] is None:
         raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md queue 1 item 10: the LM "
-            "substrate beyond dense GQA serving)")
+            f"{arch} is not ported yet (ROADMAP.md queue 1 item 8: the rest "
+            "of the LM substrate)")
     mod = importlib.import_module(ARCHS[arch])
     return mod.smoke() if smoke else mod.full()
 

@@ -31,9 +31,10 @@ itself.
 :meth:`Mesh.counting` counts, per kind, what the collectives put on the
 wire (the port's stand-in for counting collectives in compiled HLO): one
 ``"all-to-all"`` per ``all_to_all_single`` (:meth:`Mesh.all_to_all`,
-:meth:`Mesh.reshard`, :meth:`Mesh.mirror`, :meth:`Mesh.gather`) and one
+:meth:`Mesh.reshard`, :meth:`Mesh.mirror`, :meth:`Mesh.gather`), one
 ``"collective-permute"`` per point-to-point round of
-:meth:`Mesh.exchange`, with the bytes this rank hands them.
+:meth:`Mesh.exchange` and one ``"all-reduce"`` per
+:meth:`Mesh.all_reduce`, with the bytes this rank hands them.
 """
 
 from __future__ import annotations
@@ -290,6 +291,17 @@ class Mesh:
                 order, device=recv.device)]
             return got.movedim(0, concat_axis).reshape(out)
         return Pending([work], finish)
+
+    def all_reduce(self, x: torch.Tensor, axis) -> Pending:
+        """Sum over ``axis`` (``jax.lax.psum``), into ``x`` in place (a
+        contiguous tensor); the result is ``x``."""
+        if self.axis_size(axis) == 1:
+            return Pending.done(x)
+        if not x.is_contiguous():
+            raise ValueError("all_reduce sums in place: x must be contiguous")
+        self._counted("all-reduce", x.numel() * x.element_size())
+        work = dist.all_reduce(x, group=self.group(axis), async_op=True)
+        return Pending([work], lambda: x)
 
     def exchange(self, sends: Sequence, recvs: Sequence, axis) -> Pending:
         """Point-to-point transfers over ``axis``, all posted at once:

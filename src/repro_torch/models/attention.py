@@ -1,8 +1,8 @@
-"""Attention family: GQA/MQA, sliding-window, prefix-LM masks over one
-blockwise online-softmax core.
+"""Attention family: GQA/MQA, sliding-window, prefix-LM masks and
+DeepSeek-style MLA over one blockwise online-softmax core.
 
-Port of ``repro/models/attention.py`` (GQA only; MLA waits for its slice,
-``ROADMAP.md`` queue 1 item 10).  Masks are evaluated from explicit global
+Port of ``repro/models/attention.py`` (self-attention; cross-attention
+waits for the encoder-decoder slice).  Masks are evaluated from explicit global
 position vectors, so full caches, ring (sliding-window) caches and offset
 decode queries share one code path: empty cache slots carry position -1
 and mask themselves out.  ``NEG_INF`` is finite so fully masked rows stay
@@ -14,7 +14,9 @@ hand-written flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), and
 :func:`gqa_fwd` sends that case there; every other call (decode over the
 cache, a segment at an offset, prefix-LM) runs :func:`blockwise_attention`
-in plain torch, as the reference does.  The sharding hints of the
+in plain torch, as the reference does.  MLA always runs the blockwise
+core, as the reference does: its head dims (576/512 absorbed, 192/128
+decompressed) are past the kernel's ``D_MAX``.  The sharding hints of the
 reference (``kv_spec``, ``kv_local_spec``) have no counterpart: the port
 is meshless.
 """
@@ -32,8 +34,6 @@ from repro_torch.models.layers import (apply_rope, master_param, rope_angles,
                                        truncated_normal_)
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
-
-MLA_ITEM = "ROADMAP.md queue 1 item 10 (MLA attention)"
 
 
 class MaskSpec(NamedTuple):
@@ -75,10 +75,47 @@ def init_gqa(d: int, a: AttentionSpec, generator=None, device=None) -> GQA:
     return p
 
 
+class MLA(nn.Module):
+    """DeepSeek-V2 multi-head latent attention: the reference tree's keys,
+    with the query either low-rank (``w_dq``, ``w_uq``) or full (``wq``)."""
+
+    def __init__(self, d: int, a: AttentionSpec, device=None):
+        super().__init__()
+        qd = a.qk_nope_dim + a.qk_rope_dim
+        self.w_dkv = master_param(d, a.kv_lora_rank + a.qk_rope_dim,
+                                  device=device)
+        self.w_uk = master_param(a.kv_lora_rank, a.n_heads, a.qk_nope_dim,
+                                 device=device)
+        self.w_uv = master_param(a.kv_lora_rank, a.n_heads, a.v_head_dim,
+                                 device=device)
+        self.wo = master_param(a.n_heads, a.v_head_dim, d, device=device)
+        if a.q_lora_rank:
+            self.w_dq = master_param(d, a.q_lora_rank, device=device)
+            self.w_uq = master_param(a.q_lora_rank, a.n_heads, qd,
+                                     device=device)
+        else:
+            self.wq = master_param(d, a.n_heads, qd, device=device)
+
+
+def init_mla(d: int, a: AttentionSpec, generator=None, device=None) -> MLA:
+    p = MLA(d, a, device)
+    std = d ** -0.5
+    truncated_normal_(p.w_dkv.data, std, generator)
+    truncated_normal_(p.w_uk.data, a.kv_lora_rank ** -0.5, generator)
+    truncated_normal_(p.w_uv.data, a.kv_lora_rank ** -0.5, generator)
+    truncated_normal_(p.wo.data, (a.n_heads * a.v_head_dim) ** -0.5,
+                      generator)
+    if a.q_lora_rank:
+        truncated_normal_(p.w_dq.data, std, generator)
+        truncated_normal_(p.w_uq.data, a.q_lora_rank ** -0.5, generator)
+    else:
+        truncated_normal_(p.wq.data, std, generator)
+    return p
+
+
 def init_attention(d: int, a: AttentionSpec, generator=None, device=None):
-    if a.kind == "mla":
-        raise NotImplementedError(f"attention 'mla': {MLA_ITEM}")
-    return init_gqa(d, a, generator, device)
+    init = init_mla if a.kind == "mla" else init_gqa
+    return init(d, a, generator, device)
 
 
 # --------------------------------------------------------------------------
@@ -129,10 +166,10 @@ def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
 #   attention_fwd(p, x, a, ms, q_pos, kv=None, k_pos=None, ...)
 #     -> (y, new_kv)
 #   kv is None        : self-attention over x (train / prefill);
-#                       new_kv = this segment's (k, v)
+#                       new_kv = this segment's (k, v) (or MLA latent)
 #   kv = (k_buf,v_buf): attend over the provided buffers (decode cache with
-#                       the current token already written); new_kv echoes
-#                       them back
+#                       the current token already written; MLA: the latent
+#                       buffer); new_kv echoes them back
 # --------------------------------------------------------------------------
 
 def gqa_project_kv(p: GQA, x, a: AttentionSpec, positions):
@@ -174,9 +211,72 @@ def gqa_fwd(p: GQA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
     return y, (k, v)
 
 
+def mla_project_latent(p: MLA, x, a: AttentionSpec):
+    """Joint latent [c_kv | k_rope_unrotated], the cached quantity."""
+    return x @ p.w_dkv.to(x.dtype)
+
+
+def mla_fwd(p: MLA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
+            k_pos=None, *, kv_block: int = 1024, absorbed=None):
+    """DeepSeek-V2 MLA.  Cache = joint latent (B, S, kv_lora+rope); k_rope
+    is rotated at read time from the absolute k positions, so the cached
+    latent is position-free (empty slots at -1 stay finite and are
+    masked).
+
+    ``absorbed=True`` (``mla_absorb="always"``, the default): W_uk/W_uv
+    are absorbed into the query and output sides, so attention is MQA
+    over the latent: K = [c_kv | k_rope] (one kv_lora+rope wide kv head),
+    V = c_kv.  ``absorbed=False`` is the paper-literal decompression to
+    per-head K/V; ``"decode"`` absorbs for 1-token passes only.  The
+    softmax scale is (qk_nope + qk_rope)^-1/2 either way.
+    """
+    dt = x.dtype
+    if absorbed is None:
+        absorbed = {"always": True, "never": False,
+                    "decode": x.shape[1] == 1}[a.mla_absorb]
+    nope, rank = a.qk_nope_dim, a.kv_lora_rank
+    if a.q_lora_rank:
+        q = torch.einsum("bsr,rhk->bshk", x @ p.w_dq.to(dt), p.w_uq.to(dt))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], *rope_angles(q_pos, a.qk_rope_dim,
+                                                    a.rope_theta))
+    if kv is None:
+        latent = mla_project_latent(p, x, a)
+        k_pos = q_pos
+    else:
+        latent = kv
+    c_kv = latent[..., :rank]
+    # rope at the stored absolute positions: (B, T, 1, rope)
+    k_rope = apply_rope(latent[..., None, rank:],
+                        *rope_angles(k_pos, a.qk_rope_dim, a.rope_theta))
+    scale = a.scale or (nope + a.qk_rope_dim) ** -0.5
+    if absorbed:
+        # score side: q_lat[h] = q_nope[h] @ W_uk[:, h, :]^T
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p.w_uk.to(dt))
+        q_full = torch.cat([q_lat, q_rope], dim=-1)
+        k_full = torch.cat([c_kv[..., None, :], k_rope], dim=-1)
+        o_lat = blockwise_attention(q_full * scale, k_full,
+                                    c_kv[..., None, :], ms, q_pos, k_pos,
+                                    kv_block=kv_block)
+        # output side: o[h] = o_lat[h] @ W_uv[:, h, :]
+        o = torch.einsum("bshr,rhv->bshv", o_lat.to(dt), p.w_uv.to(dt))
+    else:
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk.to(dt))
+        v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv.to(dt))
+        k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1],
+                                             a.qk_rope_dim)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        o = blockwise_attention(q_full * scale, k, v, ms, q_pos, k_pos,
+                                kv_block=kv_block)
+    y = torch.einsum("bshk,hkd->bsd", o.to(dt), p.wo.to(dt))
+    return y, latent
+
+
 def attention_fwd(p, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
                   k_pos=None, *, start=None, kv_block: int = 1024):
     if a.kind == "mla":
-        raise NotImplementedError(f"attention 'mla': {MLA_ITEM}")
+        return mla_fwd(p, x, a, ms, q_pos, kv, k_pos, kv_block=kv_block)
     return gqa_fwd(p, x, a, ms, q_pos, kv, k_pos, start=start,
                    kv_block=kv_block)

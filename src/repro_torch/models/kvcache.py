@@ -1,15 +1,16 @@
-"""KV-cache structures: full and ring (sliding-window) attention caches.
+"""KV-cache structures: full, ring (sliding-window) and MLA-latent
+attention caches.
 
-Port of ``repro/models/kvcache.py`` (GQA attention caches; the MLA-latent,
-recurrent and cross-attention caches wait for their slices, ``ROADMAP.md``
-queue 1 item 10).  Every cache carries an explicit per-slot global-position
+Port of ``repro/models/kvcache.py`` (the recurrent and cross-attention
+caches wait for their slices, ``ROADMAP.md`` queue 1 item 8).  Every
+cache carries an explicit per-slot global-position
 vector ``pos`` (-1 = empty); attention masks are evaluated from it, so
 full and ring caches share the attention code path.  ``pos`` is
 batch-agnostic (the serve loop decodes in lock-step).
 
-The reference returns new arrays; :func:`write_attn_cache` writes into
-the cache's tensors in place (the cache is the largest state of a decode
-step) and returns the same dict.
+The reference returns new arrays; :func:`write_attn_cache` and
+:func:`write_latent_cache` write into the cache's tensors in place (the
+cache is the largest state of a decode step) and return the same dict.
 """
 
 from __future__ import annotations
@@ -18,20 +19,24 @@ import torch
 
 from repro_torch.models.config import AttentionSpec, LayerSpec
 
-LM_ITEM = "ROADMAP.md queue 1 item 10"
+LM_ITEM = "ROADMAP.md queue 1 item 8"
 
 
 def init_attn_cache(spec: AttentionSpec, batch: int, max_len: int, dtype,
                     device=None) -> dict:
-    """Allocate an empty attention cache for one layer."""
-    if spec.kind == "mla":
-        raise NotImplementedError(f"MLA latent cache: {LM_ITEM}")
+    """Allocate an empty attention cache for one layer: ``k``/``v``, or
+    for MLA the joint ``latent`` (B, slots, kv_lora + rope)."""
     n_slots = min(max_len, spec.window) if spec.window else max_len
+    pos = torch.full((n_slots,), -1, dtype=torch.int32, device=device)
+    if spec.kind == "mla":
+        width = spec.kv_lora_rank + spec.qk_rope_dim
+        return {"latent": torch.zeros(batch, n_slots, width, dtype=dtype,
+                                      device=device), "pos": pos}
     shape = (batch, n_slots, spec.n_kv_heads, spec.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((n_slots,), -1, dtype=torch.int32, device=device),
+        "pos": pos,
     }
 
 
@@ -88,4 +93,26 @@ def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     cache["k"][:, slot0:slot0 + s_new] = k_new
     cache["v"][:, slot0:slot0 + s_new] = v_new
     cache["pos"][slot0:slot0 + s_new] = positions
+    return cache
+
+
+def write_latent_cache(cache: dict, latent_new: torch.Tensor,
+                       start: int) -> dict:
+    """Insert a segment of MLA latents at global positions
+    [start, start+S_new), in place: one slot for a decode token (slot =
+    pos % slots), a run of slots for a prefill segment, which must not
+    wrap."""
+    n_slots = cache["latent"].shape[1]
+    s_new = latent_new.shape[1]
+    slot0 = start % n_slots
+    if s_new == 1:  # decode
+        cache["latent"][:, slot0] = latent_new[:, 0]
+        cache["pos"][slot0] = start
+        return cache
+    if slot0 + s_new > n_slots:
+        raise ValueError(f"a {s_new}-token segment at position {start} wraps "
+                         f"the {n_slots}-slot latent cache")
+    cache["latent"][:, slot0:slot0 + s_new] = latent_new
+    cache["pos"][slot0:slot0 + s_new] = start + torch.arange(
+        s_new, dtype=torch.int32, device=cache["pos"].device)
     return cache

@@ -8,7 +8,7 @@ weight to it as the reference does (a no-op once the weights were cast
 at load, :func:`repro_torch.train.train_step.cast_to_compute`).
 
 The RWKV channel mix (``ffn="rwkv_cm"``, ``token_shift``) waits for the
-recurrent slice (``ROADMAP.md`` queue 1 item 10).
+recurrent slice (``ROADMAP.md`` queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-RECURRENT_ITEM = "ROADMAP.md queue 1 item 10 (recurrent layers)"
+RECURRENT_ITEM = "ROADMAP.md queue 1 item 8 (recurrent layers)"
 
 
 def master_param(*shape, device=None) -> nn.Parameter:

@@ -1,7 +1,8 @@
 """Model assembly: embedding -> stages of layer patterns -> logits.
 
-Port of ``repro/models/model.py`` for dense attention stacks and the
-parameter-free spectral (FNet) mixer (``models/spectral.py``).  The
+Port of ``repro/models/model.py`` for attention stacks (GQA and MLA)
+with dense or MoE FFNs (``models/moe.py``) and the parameter-free
+spectral (FNet) mixer (``models/spectral.py``).  The
 reference scans each stage's ``repeat`` groups over parameters stacked on
 a leading repeat axis; here a stage is an ``nn.ModuleList`` of its layers,
 group by group (layer ``t * len(pattern) + pi`` is pattern entry ``pi`` of
@@ -12,12 +13,14 @@ carries a reference parameter tree across.
 Three modes share one layer implementation:
   train    full-sequence pass, no cache I/O (inference only in this
            slice: the teacher-forcing oracle; no gradients, no remat)
-  prefill  full sequence + writes the KV caches (serving cold start)
+  prefill  full sequence + writes the KV or latent caches (serving cold
+           start)
   decode   single token against the caches (serving steady state)
 
-Recurrent, MoE, MLA, cross-attention, encoder and prefix-embed paths,
-and the sharded context (``ShardCtx``), wait for their slices
-(``ROADMAP.md`` queue 1 item 10) and raise ``NotImplementedError``.
+Recurrent, cross-attention, encoder and prefix-embed paths, and the
+sharded context (``ShardCtx``, which would route MoE layers through
+``models/moe_sharded.py``), wait for their slices (``ROADMAP.md`` queue
+1 item 8) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import kvcache as kc
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.config import LayerSpec, ModelConfig
 
-LM_ITEM = "ROADMAP.md queue 1 item 10"
+LM_ITEM = "ROADMAP.md queue 1 item 8"
 
 
 class Ctx(NamedTuple):
@@ -47,14 +51,12 @@ class Ctx(NamedTuple):
 
 
 def _unported(spec: LayerSpec) -> Optional[str]:
-    """What of the layer this slice does not serve (MLA and the RWKV
-    channel mix raise in their own ``init_*``)."""
+    """What of the layer this slice does not serve (the RWKV channel mix
+    raises in its own ``init_ffn``)."""
     if spec.mixer not in ("attn", "spectral"):
         return f"mixer {spec.mixer!r}"
     if spec.cross_attn:
         return "cross-attention"
-    if spec.ffn == "moe":
-        return "ffn 'moe'"
     return None
 
 
@@ -63,8 +65,9 @@ def _unported(spec: LayerSpec) -> Optional[str]:
 # --------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One layer: ``ln1``, the token mixer, ``ln2``, the channel mixer.
-    The spectral mixer has no parameters (``mixer`` is None)."""
+    """One layer: ``ln1``, the token mixer (GQA or MLA), ``ln2``, the
+    channel mixer (a dense FFN or MoE).  The spectral mixer has no
+    parameters (``mixer`` is None)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, generator=None,
                  device=None):
@@ -78,7 +81,9 @@ class Layer(nn.Module):
         self.mixer = (None if spec.mixer == "spectral" else
                       attn_lib.init_attention(d, spec.attn, generator,
                                               device))
-        self.ffn = L.init_ffn(d, cfg.d_ff, spec.ffn, generator, device)
+        self.ffn = (moe_lib.init_moe(d, spec.moe, generator, device)
+                    if spec.ffn == "moe" else
+                    L.init_ffn(d, cfg.d_ff, spec.ffn, generator, device))
 
 
 def _self_attention(p: Layer, h, spec: LayerSpec, cfg: ModelConfig,
@@ -93,11 +98,21 @@ def _self_attention(p: Layer, h, spec: LayerSpec, cfg: ModelConfig,
     if ctx.mode == "prefill":
         y, kv = attn_lib.attention_fwd(p.mixer, h, a, ms, ctx.q_pos,
                                        start=ctx.start, kv_block=ctx.kv_block)
-        kc.write_attn_cache(cache["self"], kv[0], kv[1], ctx.start)
+        if a.kind == "mla":
+            kc.write_latent_cache(cache["self"], kv, ctx.start)
+        else:
+            kc.write_attn_cache(cache["self"], kv[0], kv[1], ctx.start)
         return y, cache
     # decode: project this token, write, attend over the whole cache in one
     # blockwise step
     c = cache["self"]
+    if a.kind == "mla":
+        latent_new = attn_lib.mla_project_latent(p.mixer, h, a)
+        kc.write_latent_cache(c, latent_new, ctx.start)
+        y, _ = attn_lib.attention_fwd(p.mixer, h, a, ms, ctx.q_pos,
+                                      kv=c["latent"], k_pos=c["pos"],
+                                      kv_block=c["latent"].shape[1])
+        return y, cache
     k_new, v_new = attn_lib.gqa_project_kv(p.mixer, h, a, ctx.q_pos)
     kc.write_attn_cache(c, k_new, v_new, ctx.start)
     y, _ = attn_lib.attention_fwd(p.mixer, h, a, ms, ctx.q_pos,
@@ -109,7 +124,8 @@ def _self_attention(p: Layer, h, spec: LayerSpec, cfg: ModelConfig,
 def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
               cache):
     """-> (x, cache).  The reference's third output, the MoE auxiliary
-    loss, is zero for the dense layers of this slice and is dropped."""
+    loss, is computed in train mode only, for the optimizer; this port
+    has no training step yet, so it is dropped."""
     h = L.norm_fwd(p.ln1, x, cfg.norm, cfg.norm_eps)
     if spec.mixer == "spectral":
         from repro_torch.models.spectral import spectral_mixer
@@ -118,6 +134,8 @@ def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
         y, cache = _self_attention(p, h, spec, cfg, ctx, cache)
     x = x + y
     h2 = L.norm_fwd(p.ln2, x, cfg.norm, cfg.norm_eps)
+    if spec.ffn == "moe":
+        return x + moe_lib.moe_fwd(p.ffn, h2, spec.moe), cache
     return x + L.ffn_fwd(p.ffn, h2, spec.ffn), cache
 
 

@@ -4,7 +4,7 @@ Port of the serving part of ``repro/train/train_step.py``
 (``cast_to_compute``, ``make_serve_steps``, ``greedy_sample``,
 ``temperature_sample``), meshless.  The train step, its loss and the
 spectral-layer training wait for the training slice (``ROADMAP.md``
-queue 1 item 10): ``flash_attention`` has no backward kernel in the
+queue 1 item 8): ``flash_attention`` has no backward kernel in the
 reference.
 
 The reference casts the fp32 masters to the compute dtype inside every

@@ -676,3 +676,59 @@ def test_trace_forward_meshless_on_the_card(cuda_device):
     assert summary["e2e_s"] > 0 and "note" in summary
     with torch.no_grad():
         assert torch.equal(y, plan.forward(x))
+
+
+MOE_TOL = 1e-5      # tests/test_perf_paths.py:64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor,n_shared", [(16.0, 0), (1.25, 2),
+                                                      (0.5, 0)])
+def test_moe_forward_on_the_card_matches_the_cpu(cuda_device,
+                                                 capacity_factor, n_shared):
+    """``moe_fwd`` (the stable-sort dispatch, the batched expert GEMMs on
+    cuBLAS, the float32 combine) on the card against the same weights and
+    tokens on the CPU, float32, within 1e-5; the same rows are dropped.
+    It launches none of the kernels."""
+    from repro_torch.models.config import MoESpec
+    from repro_torch.models.moe import init_moe, moe_fwd
+    m = MoESpec(n_experts=16, top_k=6, n_shared=n_shared, d_ff_expert=32,
+                capacity_factor=capacity_factor)
+    p = init_moe(64, m, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn(2, 96, 64, generator=torch.Generator().manual_seed(1))
+    want = moe_fwd(p, x, m)
+    before = launch_counts()
+    got = moe_fwd(p.to(cuda_device), x.to(cuda_device), m).cpu()
+    assert launch_counts() == before
+    assert (got - want).abs().max().item() <= MOE_TOL
+    assert torch.equal((got == 0).all(-1), (want == 0).all(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "mixtral-8x22b"])
+def test_moe_models_on_the_card_match_the_cpu(cuda_device, arch):
+    """The smoke model (MLA or GQA attention, MoE FFNs) on the card against
+    the same weights on the CPU, float32: train logits and the decode step
+    after a prefill within 2e-4·max|ref|."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 25),
+                           generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        model = model.to(dev)
+        t = tokens.to(dev)
+        train, _ = forward(model, cfg, t, mode="train", kv_block=16)
+        caches = init_caches(cfg, 2, 32, dtype=torch.float32, device=dev)
+        forward(model, cfg, t[:, :24], mode="prefill", caches=caches,
+                kv_block=16)
+        dec, _ = forward(model, cfg, t[:, 24:], mode="decode", caches=caches,
+                         start=24, kv_block=16)
+        outs.append((train.cpu(), dec.cpu()))
+    (want, want_dec), (got, got_dec) = outs
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= TF_TOL * top
+    assert (got_dec - want_dec).abs().max().item() <= TF_TOL * top

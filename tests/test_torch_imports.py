@@ -45,6 +45,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.serve.batcher", "repro_torch.serve.request",
             "repro_torch.resil.degrade",
             "repro_torch.train.fault"} <= set(_port_modules())
+    assert {"repro_torch.models.moe", "repro_torch.models.moe_sharded",
+            "repro_torch.configs.deepseek_v2_236b",
+            "repro_torch.configs.mixtral_8x22b"} <= set(_port_modules())
 
 
 def _imported_roots(path: str) -> set:

@@ -184,7 +184,7 @@ def test_serve_cli_and_its_refusals(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main([])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         serve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu"])
 
 
