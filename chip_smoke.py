@@ -173,14 +173,39 @@ into ``build/``, then runs:
    5120, f 1536, top-6, 2 shared), float32, capacity factor 16, (1, 256)
    tokens a rank: each rank's output within 1e-5 * max|ref| of its slice
    of the meshless ``moe_fwd``, its counted collectives;
-11. one JSON line on the kernels, the card's name and power limit, and
+11. head_dim-256 attention, the dense configs and the recurrent layers:
+   (11a) ``gqa_fwd`` over a segment at 0 at head_dim 256 and 128 (8 heads
+   over 4, 2 x 1024, window 1024 and none), float32 and bf16, against the
+   same call on the CPU in float32 (5e-5; bf16 2^-6 * max|want| + 5e-5):
+   no ``flash_attention`` launch at 256 (the blockwise core), one at 128
+   (``wgmma`` for bf16); then, each at full width with seeded bf16
+   weights, a 2 x 4096 ``synth_tokens`` prompt and 32 greedy tokens,
+   wall, profiled device time by kernel of the prefill and of one decode
+   step (against the weights' bytes over the memory rate), peak memory,
+   and the first decode step of a fresh prefill within 5e-2 * max|ref| of
+   the bf16 train pass: (11b) gemma3-4b, 34 layers (head_dim 256: no
+   kernel launch); (11c) yi-9b, 48 layers, and yi-34b cut to 16 layers
+   (9.84e9 parameters; 60 layers are 137 GB of fp32 masters), one
+   ``flash_attention`` launch a layer in the prefill, all ``wgmma``, none
+   in the decode, layer 0's q, k, v held against the plain version;
+   (11d) recurrentgemma-9b, 38 layers (RG-LRU and head_dim-256 local
+   attention: no kernel launch) and (11e) rwkv6-3b, 32 layers, each with
+   one full-width float32 mixer's 256 decode steps against its prefill
+   (3e-5 RG-LRU, 3e-4 RWKV-6) and float32 teacher forcing (2e-4 *
+   max|ref|, S 1024) at one [rglru, rglru, attn] group or 2 RWKV layers;
+   (11f, run by 10c's ranks after the dispatch) ``cp_vector_recurrence``
+   at (2, 4096, 4096) and ``cp_matrix_recurrence`` at (2, 4096, 40, 64),
+   each rank's block within 1e-5 / 1e-4 of its slice of the meshless
+   scan, and the counted collectives (2 Hillis-Steele rounds and a shift
+   of the (decay, contribution) pair, one all-reduce);
+12. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
 3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, 6c, 7a,
-7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a and
-10b, 10c's dispatch; in 3g and 5 before each backward too) and read just
-after it.
+7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a,
+10b and 11b-11e, 10c's dispatch; in 3g and 5 before each backward too)
+and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -3177,7 +3202,8 @@ def worker_moe(rank: int, port: int) -> None:
     (data 1, model 4) mesh, against rank 0's meshless ``moe_fwd`` over all
     ranks' tokens.  Each rank draws the full MoE from the seed in turn
     (one full float32 copy on the card at a time) and keeps its block.
-    Prints its result as a JSON line."""
+    Prints its result as a JSON line, then runs 11f's scans on the same
+    mesh (``scan_check``) and prints theirs."""
     import gc
     import torch
     import torch.distributed as dist
@@ -3227,12 +3253,18 @@ def worker_moe(rank: int, port: int) -> None:
         top=ref.abs().max().item(), ms=ms, collectives=cnt.collectives,
         launches=launches,
         peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)), flush=True)
+    del local, x, xl, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("RESULT_SCAN " + json.dumps(scan_check(rank, mesh, dev)),
+          flush=True)
     leave_ranks(mesh)
 
 
-def phase_moe(dev) -> dict:
-    """10a deepseek-v2-236b, 10b mixtral-8x22b, 10c the ep dispatch;
-    returns the serving runs' launch counts."""
+def phase_moe(dev) -> tuple:
+    """10a deepseek-v2-236b, 10b mixtral-8x22b, 10c the ep dispatch (whose
+    ranks then run 11f's scans); returns the serving runs' launch counts
+    and each rank's 11f result."""
     import gc
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -3268,8 +3300,8 @@ def phase_moe(dev) -> dict:
     print(f"[10b] {time.time() - t0:.1f} s", flush=True)
 
     t0 = time.time()
-    results = _results(spawn_ranks("--worker-moe", RANKS), "RESULT_MOE",
-                       "10c")
+    outs = spawn_ranks("--worker-moe", RANKS)
+    results = _results(outs, "RESULT_MOE", "10c")
     top = results[0]["top"]
     cfg = _moe_cut(DS, 1)
     m = cfg.stages[-1].pattern[0].moe
@@ -3291,7 +3323,465 @@ def phase_moe(dev) -> dict:
           f"{[round(r['peak_gib'], 2) for r in results]}; "
           f"{time.time() - t0:.1f} s", flush=True)
     print(f"[10] phase 10 {time.time() - t_phase:.1f} s", flush=True)
+    return dict(counts), _results(outs, "RESULT_SCAN", "11f")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: head_dim-256 attention off the kernel, the dense configs and
+# the recurrent layers
+# ---------------------------------------------------------------------------
+
+P11_PROMPT = 4096         # past gemma3's and recurrentgemma's windows
+GEMMA = "gemma3-4b"       # src/repro/configs/gemma3_4b.py
+YI9 = "yi-9b"             # src/repro/configs/yi_9b.py
+YI34 = "yi-34b"           # src/repro/configs/yi_34b.py
+YI34_LAYERS = 16          # cut from 60: 34.4e9 fp32 masters are 137 GB
+RG = "recurrentgemma-9b"  # src/repro/configs/recurrentgemma_9b.py
+RWKV = "rwkv6-3b"         # src/repro/configs/rwkv6_3b.py
+GQA_SEQ = 1024            # 11a's (2, 1024) segment, 8 heads over 4
+GQA_D = 2560              # 11a's model width (gemma3-4b's)
+STEP_TOKENS = 256         # decode vs prefill on one mixer: tokens
+RG_STEP_TOL = 3e-5        # tests/test_layers.py:259-262
+RWKV_STEP_TOL = 3e-4      # tests/test_layers.py:276-279
+REC_TF_SEQ = 1024         # the float32 teacher-forcing sequence
+# rwkv6-3b's teacher-forcing depth, float32 and bf16.  With depth the
+# seeded RWKV-6 stack amplifies bf16 rounding past 5e-2 of max|ref| in
+# the reference too (tests/test_torch_lm_archs.py::
+# test_rwkv_bf16_teacher_forcing_drifts_with_depth_in_the_reference_too),
+# so bf16 is held at this depth and read at 32
+RWKV_TF_LAYERS = 2
+SCAN_VEC = (2, 4096, 4096)        # 11f: cp_vector_recurrence's (B, T, D)
+SCAN_MAT = (2, 4096, 40, 64)      # 11f: cp_matrix_recurrence's (B, T, H, K)
+SCAN_VEC_TOL = 1e-5       # tests/test_parallel.py:44-45
+SCAN_MAT_TOL = 1e-4       # tests/test_parallel.py:58-59
+
+
+def phase_gqa_head_dims(dev) -> None:
+    """11a: ``gqa_fwd`` over a segment at 0 at head_dim 256 and 128 (8
+    heads over 4, 2 x GQA_SEQ, window GQA_SEQ and none), float32 and bf16
+    on the card, against the same call on the CPU in float32 on the same
+    (bf16-representable) values: no kernel launch at 256, one at 128
+    (``wgmma`` for bf16, FFMA for float32).  Float32 within ATTN_TOL,
+    bf16 within ATTN_BF16_REL·max|want| + ATTN_TOL (the layer rounds its
+    projections to bf16 around the core)."""
+    import copy
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.attention import MaskSpec, gqa_fwd, init_gqa
+    from repro_torch.models.config import AttentionSpec
+    for head_dim in (256, 128):
+        for window in (GQA_SEQ, None):
+            a = AttentionSpec(kind="gqa", n_heads=8, n_kv_heads=4,
+                              head_dim=head_dim, window=window)
+            p = init_gqa(GQA_D, a, torch.Generator().manual_seed(SEED),
+                         "cpu")
+            for w in p.parameters():
+                w.data = w.data.bfloat16().float()
+            x = torch.randn(BATCH, GQA_SEQ, GQA_D, generator=torch.Generator(
+                ).manual_seed(SEED + 1)).bfloat16().float()
+            pos = torch.arange(GQA_SEQ, dtype=torch.int32)
+            ms = MaskSpec(causal=True, window=window)
+            want, _ = gqa_fwd(p, x, a, ms, pos, start=0)
+            top = want.abs().max().item()
+            for dtype in (torch.float32, torch.bfloat16):
+                pd = copy.deepcopy(p).to(dev, dtype)
+                before = launch_counts()
+                got, _ = gqa_fwd(pd, x.to(dev, dtype), a, ms, pos.to(dev),
+                                 start=0)
+                torch.cuda.synchronize()
+                after = launch_counts()
+                launched = {k: n - before.get(k, 0) for k, n in after.items()
+                            if n != before.get(k, 0)}
+                err = (got.float().cpu() - want).abs().max().item()
+                tol = ATTN_TOL if dtype == torch.float32 \
+                    else ATTN_BF16_REL * top + ATTN_TOL
+                name = str(dtype).split(".")[-1]
+                print(f"[11a] gqa_fwd head_dim {head_dim} window {window} "
+                      f"{name}: max_abs_err vs the CPU float32 {err:.3e} "
+                      f"(tol {tol:.3e}, max|want| {top:.3f}); launches "
+                      f"{launched}", flush=True)
+                check(err <= tol and bool(torch.isfinite(got).all()),
+                      f"phase 11a head_dim {head_dim} {name}: err {err}")
+                if head_dim > fa.D_MAX:
+                    check(not launched, f"phase 11a head_dim {head_dim}: "
+                          f"launched {launched}")
+                else:
+                    variant = fa.TC if dtype == torch.bfloat16 else fa.FFMA
+                    check(launched.get(fa.NAME) == 1
+                          and launched.get(variant) == 1,
+                          f"phase 11a head_dim {head_dim} {name}: launched "
+                          f"{launched}")
+                del pd, got
+
+
+def _cut(arch: str, layers=None, dtype=None):
+    """``arch``'s config at full width, its depth cut to ``layers`` of its
+    first pattern (one stage), optionally in another dtype."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Stage
+    cfg = get_config(arch)
+    if layers is not None:
+        pattern = cfg.stages[0].pattern
+        if layers % len(pattern):
+            raise ValueError(f"{layers} layers do not hold whole "
+                             f"{len(pattern)}-layer groups")
+        cfg = dataclasses.replace(
+            cfg, stages=(Stage(pattern, layers // len(pattern)),))
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+
+
+def _tf_bf16(dev, tag: str, model, cfg, prompts, first, hold: bool) -> dict:
+    """Teacher forcing in bf16: the first decode step after a fresh
+    prefill of ``prompts`` == the train pass over the prompt and the
+    token ``first``, within BF16_TF_TOL of max|ref| when ``hold`` (else a
+    reading only); returns the launches."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, init_caches
+    from repro_torch.train import make_serve_steps
+    prompt = prompts.shape[1]
+    prefill, decode = make_serve_steps(cfg, BATCH, prompt + 1,
+                                       kv_block=KV_BLOCK, device=dev)
+    caches = init_caches(cfg, BATCH, prompt + 1, dtype=torch.bfloat16,
+                         device=dev)
+    seq = torch.cat([torch.as_tensor(prompts, device=dev), first], dim=1)
+    reset_launch_counts()
+    _, caches = prefill(model, prompts, caches)
+    first_decode, _ = decode(model, first, caches, prompt)
+    del caches
+    ref, _ = forward(model, cfg, seq, mode="train", kv_block=KV_BLOCK)
+    counts = launch_counts()
+    ref = ref[:, prompt].float()
+    top = ref.abs().max().item()
+    err = (first_decode.float() - ref).abs().max().item()
+    print(f"[{tag}] teacher forcing bf16, {cfg.n_layers} layers, "
+          f"S={prompt}: decode vs train max_abs_err {err:.3e} "
+          f"({err / top:.2e}·max|ref|), tol {BF16_TF_TOL * top:.3e}"
+          f"{'' if hold else ' (a reading, not held: see PERF.md §6)'}; "
+          f"launches {counts}", flush=True)
+    if hold:
+        check(err <= BF16_TF_TOL * top,
+              f"phase {tag}: bf16 teacher forcing decode err {err}")
+    del ref, first_decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _serve_lm(dev, tag: str, cfg, prompt: int, tf_layers=None) -> tuple:
+    """Prefill a BATCH x ``prompt`` prompt and decode GEN greedy tokens
+    (bf16, seeded weights), profile one prefill and one decode step (its
+    busy time against the weights' bytes over the memory rate), then the
+    bf16 teacher forcing (``_tf_bf16``): held at full depth, or, with
+    ``tf_layers``, read at full depth and held on the same config cut to
+    ``tf_layers`` layers.  Returns the launches of the served prefill,
+    of its decode steps and of the full-depth teacher forcing, and the
+    attention layers' ``flash_attention`` calls in the served prefill
+    (the first held against the plain version on its inputs)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Stage, init_caches, init_params
+    from repro_torch.train import (cast_to_compute, greedy_sample,
+                                   make_serve_steps)
+    from repro_torch.train.data import synth_tokens
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, t_init = _wall(lambda: cast_to_compute(
+        init_params(cfg, gen, dev), cfg.dtype))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    peak_init = torch.cuda.max_memory_allocated(dev) / 2**30
+    max_len = prompt + GEN
+    prefill, decode = make_serve_steps(cfg, BATCH, max_len, kv_block=KV_BLOCK,
+                                       device=dev)
+    prompts = synth_tokens(SEED, 0, BATCH, prompt, cfg.vocab)
+    torch.cuda.reset_peak_memory_stats(dev)
+    caches = init_caches(cfg, BATCH, max_len, dtype=torch.bfloat16,
+                         device=dev)
+    reset_launch_counts()
+    with _FirstAttention() as attn:
+        (logits, caches), t_prefill = _wall(lambda: prefill(model, prompts,
+                                                            caches))
+    prefill_counts = launch_counts()
+    if attn.first is not None:
+        attn.check_first(tag)
+    finite = torch.isfinite(logits).all()
+    tok = greedy_sample(logits)[:, None]
+    out = [tok]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GEN - 1):
+        logits, caches = decode(model, tok, caches, prompt + i)
+        finite &= torch.isfinite(logits).all()
+        tok = greedy_sample(logits)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) * 1e3
+    decode_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    tokens = torch.cat(out, dim=1).cpu()
+    print(f"[{tag}] {cfg.name} bf16, {cfg.n_layers} layers, {n_params} "
+          f"parameters ({weight_bytes / 2**30:.2f} GiB): init {t_init:.1f} "
+          f"ms, peak {peak_init:.2f} GiB (fp32 masters); prefill "
+          f"{BATCH}x{prompt} {t_prefill:.2f} ms (first call); decode "
+          f"{GEN - 1} steps {t_decode:.2f} ms ({t_decode / (GEN - 1):.2f} "
+          f"ms/step, {BATCH * (GEN - 1) / t_decode * 1e3:.1f} tok/s); peak "
+          f"{peak:.2f} GiB serving; flash_attention calls in the prefill "
+          f"{attn.calls}; launches prefill {prefill_counts} decode "
+          f"{decode_counts}; tokens {tokens[:, :8].tolist()}", flush=True)
+    check(bool(finite), f"non-finite logits in phase {tag}")
+    profile_device(lambda: prefill(model, prompts, caches), tag, "prefill",
+                   10)
+    busy, _ = profile_device(
+        lambda: decode(model, tok, caches, prompt + GEN - 1), tag,
+        "decode step", 8)
+    bound = weight_bytes / HBM_BYTES_S * 1e3
+    print(f"[{tag}] decode step busy {busy:.2f} ms against the weights' "
+          f"bytes bound {bound:.2f} ms ({weight_bytes / 1e9:.2f} GB over "
+          f"{HBM_BYTES_S / 1e12:.2f} TB/s; {bound / busy * 100:.0f} %)",
+          flush=True)
+    del caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tf_counts = _tf_bf16(dev, tag, model, cfg, prompts, out[0],
+                         hold=tf_layers is None)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if tf_layers is not None:
+        pattern = cfg.stages[0].pattern
+        small = dataclasses.replace(cfg, stages=(
+            Stage(pattern, tf_layers // len(pattern)),))
+        model = cast_to_compute(init_params(small, gen, dev), small.dtype)
+        _tf_bf16(dev, tag, model, small, prompts, out[0], hold=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return prefill_counts, decode_counts, tf_counts, attn.calls
+
+
+def _tf_f32(dev, tag: str, cfg, seq: int) -> dict:
+    """Float32 teacher forcing, 2e-4 of max|ref|: the decode logits at
+    ``seq`` against the train pass over seq + 1 tokens, and the prefill's
+    against the train pass over the same ``seq`` tokens.  The prefill
+    against the first ``seq`` positions of the longer pass is printed as
+    a reading, with its worst positions: the two passes' GEMMs differ in
+    shape, so their rounding differs, and RWKV-6's per-head RMS norm
+    (eps 1e-6) magnifies that where a head's output nearly cancels, as
+    at the first positions (PERF.md §6).  Returns the launches."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.train.data import synth_tokens
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    tokens = torch.as_tensor(synth_tokens(SEED, 1, BATCH, seq + 1, cfg.vocab),
+                             device=dev)
+    reset_launch_counts()
+    ref, _ = forward(model, cfg, tokens, mode="train", kv_block=KV_BLOCK)
+    ref_seq, _ = forward(model, cfg, tokens[:, :seq], mode="train",
+                         kv_block=KV_BLOCK)
+    caches = init_caches(cfg, BATCH, seq + 1, dtype=torch.float32,
+                         device=dev)
+    pre, caches = forward(model, cfg, tokens[:, :seq], mode="prefill",
+                          caches=caches, kv_block=KV_BLOCK)
+    dec, _ = forward(model, cfg, tokens[:, seq:], mode="decode",
+                     caches=caches, start=seq, kv_block=KV_BLOCK)
+    counts = launch_counts()
+    top = ref.abs().max().item()
+    err = (dec[:, 0] - ref[:, seq]).abs().max().item()
+    err_pre = (pre - ref_seq).abs().max().item()
+    by_pos = (pre - ref[:, :seq]).abs().amax(dim=(0, 2))
+    worst = by_pos.topk(3)
+    worst_errs = [f"{v:.2e}" for v in worst.values.tolist()]
+    print(f"[{tag}] teacher forcing f32, {cfg.n_layers} layers, S={seq}: "
+          f"decode vs train max_abs_err {err:.3e}, prefill vs train over "
+          f"the same tokens {err_pre:.3e}, tol {TF_TOL * top:.3e}; "
+          f"reading: prefill vs the {seq + 1}-token train pass "
+          f"{by_pos.max().item():.3e}, worst at positions "
+          f"{worst.indices.tolist()} ({worst_errs}), "
+          f"median over positions {by_pos.median().item():.2e}; launches "
+          f"{counts}", flush=True)
+    check(err <= TF_TOL * top, f"phase {tag}: f32 teacher forcing decode "
+          f"err {err}")
+    check(err_pre <= TF_TOL * top, f"phase {tag}: f32 teacher forcing "
+          f"prefill err {err_pre}")
+    del model, caches, ref, ref_seq, pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _mixer_steps(dev, tag: str, cfg, tol: float) -> None:
+    """One recurrent mixer of ``cfg`` at full width in float32: a prefill
+    over STEP_TOKENS tokens from a zero state against step-by-step decode
+    over the same tokens, outputs and final state within ``tol`` (the
+    reference's ``tests/test_layers.py`` case at full width)."""
+    import torch
+    from repro_torch.models import recurrent as rec
+    spec = cfg.stages[0].pattern[0]
+    r, d = spec.recurrent, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    if spec.mixer == "rglru":
+        p = rec.init_rglru(d, r, gen, dev)
+        fwd = rec.rglru_fwd
+        state0 = rec.rglru_init_state(BATCH, r.d_state or d, r.conv_width,
+                                      torch.float32, dev)
+    else:
+        p = rec.init_rwkv6(d, r, gen, dev)
+        fwd = rec.rwkv6_fwd
+        state0 = rec.rwkv6_init_state(BATCH, d, r.n_heads or d // 64,
+                                      torch.float32, dev)
+    x = torch.randn(BATCH, STEP_TOKENS, d, device=dev, generator=gen)
+    (y_all, st_all), t_pre = _wall(lambda: fwd(p, x, r, state0))
+
+    def steps():
+        st, ys = state0, []
+        for i in range(STEP_TOKENS):
+            y, st = fwd(p, x[:, i:i + 1], r, st)
+            ys.append(y)
+        return torch.cat(ys, 1), st
+    (y_steps, st), t_steps = _wall(steps)
+    err = (y_steps - y_all).abs().max().item()
+    err_state = max((a - b).abs().max().item() for a, b in zip(st, st_all))
+    print(f"[{tag}] {spec.mixer} mixer, d {d}, float32, {BATCH} x "
+          f"{STEP_TOKENS} tokens: prefill {t_pre:.2f} ms, {STEP_TOKENS} "
+          f"decode steps {t_steps:.2f} ms; decode vs prefill max_abs_err "
+          f"{err:.3e}, state {err_state:.3e} (tol {tol:.0e}, max|y| "
+          f"{y_all.abs().max().item():.3f})", flush=True)
+    check(err <= tol and err_state <= tol,
+          f"phase {tag}: decode vs prefill {err} / {err_state}")
+
+
+def phase_lm_archs(dev, scan_results: list) -> dict:
+    """11a the head-dim route, 11b gemma3-4b, 11c yi-9b and yi-34b (16
+    layers), 11d recurrentgemma-9b, 11e rwkv6-3b, 11f (run by phase
+    10c's ranks) the sequence-parallel scans; returns the serving runs'
+    launch counts."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = Counter()
+
+    phase_gqa_head_dims(dev)
+    print(f"[11a] {time.time() - t_phase:.1f} s", flush=True)
+
+    no_kernel = ((GEMMA, "11b", None), (RG, "11d", None), (RWKV, "11e", None))
+    on_kernel = ((YI9, "11c", None), (YI34, "11c", YI34_LAYERS))
+    for arch, tag, layers in sorted(no_kernel + on_kernel,
+                                    key=lambda c: c[1]):
+        t0 = time.time()
+        cfg = _cut(arch, layers)
+        pre, dec, tf, calls = _serve_lm(
+            dev, tag, cfg, P11_PROMPT,
+            tf_layers=RWKV_TF_LAYERS if arch == RWKV else None)
+        counts.update(pre)
+        counts.update(dec)
+        n_attn = sum(stage.repeat * sum(s.mixer == "attn"
+                                        for s in stage.pattern)
+                     for stage in cfg.stages)
+        if (arch, tag, layers) in no_kernel:
+            check(not calls and not pre.get(fa.NAME) and not dec.get(fa.NAME)
+                  and not tf.get(fa.NAME),
+                  f"phase {tag} {arch}: flash_attention launched {calls} "
+                  f"{pre} {dec} {tf}")
+        else:
+            check(calls == n_attn and pre.get(fa.NAME) == n_attn
+                  and pre.get(fa.TC) == n_attn,
+                  f"phase {tag} {arch}: prefill flash_attention launches "
+                  f"{calls} {pre}, {n_attn} expected on wgmma")
+            check(not dec.get(fa.NAME), f"phase {tag} {arch}: decode "
+                  f"flash_attention launches {dec}")
+            check(tf.get(fa.NAME) == 2 * n_attn
+                  and tf.get(fa.TC) == 2 * n_attn,
+                  f"phase {tag} {arch}: teacher-forcing launches {tf}")
+        if arch == RG:
+            _mixer_steps(dev, tag, cfg, RG_STEP_TOL)
+            _tf_f32(dev, tag, _cut(RG, 3, "float32"), REC_TF_SEQ)
+        elif arch == RWKV:
+            _mixer_steps(dev, tag, cfg, RWKV_STEP_TOL)
+            _tf_f32(dev, tag, _cut(RWKV, RWKV_TF_LAYERS, "float32"),
+                    REC_TF_SEQ)
+        print(f"[{tag}] {arch}: {time.time() - t0:.1f} s", flush=True)
+
+    # 11f: the scans, run by phase 10c's ranks
+    for which, tol in (("vector", SCAN_VEC_TOL), ("matrix", SCAN_MAT_TOL)):
+        res = [r[which] for r in scan_results]
+        err = max(max(r["err"], r["err_last"]) for r in res)
+        print(f"[11f] cp_{which}_recurrence, {RANKS} gloo ranks, "
+              f"{res[0]['shape_full']} sharded on T: max_abs_err vs the "
+              f"meshless scan {err:.3e} (tol {tol:.0e}, max|ref| "
+              f"{res[0]['top']:.3f}); {max(r['ms'] for r in res):.1f} ms "
+              f"(slowest rank, host clock, gloo); collectives a rank "
+              f"{[r['collectives'] for r in res]}", flush=True)
+        check(err <= tol, f"phase 11f {which}: err {err}")
+        counted = [r["collectives"] for r in res]
+        sends = [c.get("collective-permute", {}).get("count", 0)
+                 for c in counted]
+        check(sends == [6, 6, 4, 0]
+              and all(c["all-reduce"]["count"] == 1 for c in counted),
+              f"phase 11f {which}: collectives {counted}")
+    print(f"[11] phase 11 {time.time() - t_phase:.1f} s", flush=True)
     return dict(counts)
+
+
+def scan_check(rank: int, mesh, dev) -> dict:
+    """11f on one rank of 10c's (data 1, model 4) mesh: the full inputs
+    drawn from the seed on every rank, this rank's block of T through
+    ``cp_vector_recurrence`` and ``cp_matrix_recurrence``, against its
+    slice of the meshless scan (and the final state, on every rank)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import recurrent as rec
+    from repro_torch.parallel.seqscan import (cp_matrix_recurrence,
+                                              cp_vector_recurrence)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    b, t, d = SCAN_VEC
+    rows = slice(rank * t // RANKS, (rank + 1) * t // RANKS)
+    log_a = -torch.randn(b, t, d, device=dev, generator=gen).abs() * 0.3
+    bb = torch.randn(b, t, d, device=dev, generator=gen)
+    h0 = torch.randn(b, d, device=dev, generator=gen)
+    ref, ref_last = rec.vector_recurrence(log_a, bb, h0)
+    blk = (log_a[:, rows].contiguous(), bb[:, rows].contiguous())
+    dist.barrier()
+    with mesh.counting() as cnt:
+        (h, h_last), ms = _wall(lambda: cp_vector_recurrence(
+            *blk, h0, mesh=mesh, cp_axis="model", batch_spec="data"))
+    out["vector"] = dict(
+        shape_full=list(SCAN_VEC), err=(h - ref[:, rows]).abs().max().item(),
+        err_last=(h_last - ref_last).abs().max().item(),
+        top=ref.abs().max().item(), ms=ms, collectives=cnt.collectives)
+    del log_a, bb, ref, blk, h
+    b, t, hh, k = SCAN_MAT
+    lw = -torch.randn(b, t, hh, k, device=dev, generator=gen).abs() * 0.4
+    kk, vv, rr = (torch.randn(b, t, hh, k, device=dev, generator=gen)
+                  for _ in range(3))
+    u = torch.randn(hh, k, device=dev, generator=gen)
+    s0 = torch.randn(b, hh, k, k, device=dev, generator=gen)
+    ref, ref_last = rec.matrix_recurrence(lw, kk, vv, rr, u, s0)
+    blk = [x[:, rows].contiguous() for x in (lw, kk, vv, rr)]
+    dist.barrier()
+    with mesh.counting() as cnt:
+        (o, s_last), ms = _wall(lambda: cp_matrix_recurrence(
+            *blk, u, s0, mesh=mesh, cp_axis="model", batch_spec="data"))
+    out["matrix"] = dict(
+        shape_full=list(SCAN_MAT), err=(o - ref[:, rows]).abs().max().item(),
+        err_last=(s_last - ref_last).abs().max().item(),
+        top=ref.abs().max().item(), ms=ms, collectives=cnt.collectives)
+    return out
 
 
 def main() -> int:
@@ -3318,7 +3808,9 @@ def main() -> int:
              phase_cell(), phase_serve(dev), phase_grad(dev), phase_tune(dev),
              phase_service(dev)]
     trace_counts, trace_results = phase_trace()
-    paths += [trace_counts, phase_fnet(dev, trace_results), phase_moe(dev)]
+    moe_counts, scan_results = phase_moe(dev)
+    paths += [trace_counts, phase_fnet(dev, trace_results), moe_counts,
+              phase_lm_archs(dev, scan_results)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {

@@ -1,5 +1,5 @@
 """LM substrate: configs, layers, and the staged model (port of
-``repro/models``; dense GQA serving so far)."""
+``repro/models``: dense GQA, MLA, MoE, FNet and the recurrent mixers)."""
 
 from repro_torch.models.config import (AttentionSpec, EncoderConfig,
                                        LayerSpec, ModelConfig, MoESpec,

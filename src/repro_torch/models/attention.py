@@ -12,9 +12,12 @@ Self-attention over a whole segment that starts at position 0 (train and
 prefill passes, no prefix-LM span) is exactly the function of the
 hand-written flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), and
-:func:`gqa_fwd` sends that case there; every other call (decode over the
-cache, a segment at an offset, prefix-LM) runs :func:`blockwise_attention`
-in plain torch, as the reference does.  MLA always runs the blockwise
+:func:`gqa_fwd` sends that case there when its head dims are within the
+kernel's ``D_MAX``; every other call (decode over the cache, a segment at
+an offset, prefix-LM, head_dim 256 as in gemma3 and recurrentgemma) runs
+:func:`blockwise_attention` in plain torch, as the reference does.  The
+route depends on the shapes alone, so the CPU takes the route the card
+takes.  MLA always runs the blockwise
 core, as the reference does: its head dims (576/512 absorbed, 192/128
 decompressed) are past the kernel's ``D_MAX``.  The sharding hints of the
 reference (``kv_spec``, ``kv_local_spec``) have no counterpart: the port
@@ -28,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import D_MAX, flash_attention
 from repro_torch.models.config import AttentionSpec
 from repro_torch.models.layers import (apply_rope, master_param, rope_angles,
                                        truncated_normal_)
@@ -199,8 +202,10 @@ def gqa_fwd(p: GQA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
         k, v = kv
     scale = a.scale or a.head_dim ** -0.5
     if kv is None and type(start) is int and start == 0 \
-            and ms.prefix_len == 0:
-        # positions 0..S-1 on both sides: the flash-attention kernel's case
+            and ms.prefix_len == 0 and q.shape[-1] <= D_MAX \
+            and v.shape[-1] <= D_MAX:
+        # positions 0..S-1 on both sides, head dims the kernel takes: the
+        # flash-attention kernel's case
         o = flash_attention((q * scale).contiguous(), k.contiguous(),
                             v.contiguous(), causal=ms.causal,
                             window=ms.window, scale=1.0)

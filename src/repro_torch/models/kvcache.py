@@ -1,12 +1,14 @@
-"""KV-cache structures: full, ring (sliding-window) and MLA-latent
-attention caches.
+"""Cache structures: full, ring (sliding-window) and MLA-latent
+attention caches, and the recurrent state.
 
-Port of ``repro/models/kvcache.py`` (the recurrent and cross-attention
-caches wait for their slices, ``ROADMAP.md`` queue 1 item 8).  Every
-cache carries an explicit per-slot global-position
-vector ``pos`` (-1 = empty); attention masks are evaluated from it, so
-full and ring caches share the attention code path.  ``pos`` is
-batch-agnostic (the serve loop decodes in lock-step).
+Port of ``repro/models/kvcache.py`` (the cross-attention cache waits for
+the encoder-decoder slice, ``ROADMAP.md`` queue 1 item 8c).  Every
+attention cache carries an explicit per-slot global-position vector
+``pos`` (-1 = empty); attention masks are evaluated from it, so full and
+ring caches share the attention code path.  ``pos`` is batch-agnostic
+(the serve loop decodes in lock-step).  The recurrent cache holds the
+mixer's state and the token-shift inputs; ``models/model.py`` writes
+them in place, as the attention writes below do.
 
 The reference returns new arrays; :func:`write_attn_cache` and
 :func:`write_latent_cache` write into the cache's tensors in place (the
@@ -17,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.config import AttentionSpec, LayerSpec
+from repro_torch.models.config import (AttentionSpec, LayerSpec,
+                                       RecurrentSpec)
 
 LM_ITEM = "ROADMAP.md queue 1 item 8"
 
@@ -40,19 +43,42 @@ def init_attn_cache(spec: AttentionSpec, batch: int, max_len: int, dtype,
     }
 
 
+def init_recurrent_cache(spec: RecurrentSpec, d_model: int, batch: int,
+                         dtype, device=None) -> dict:
+    """RG-LRU: the state ``h`` (float32) and the conv's trailing inputs;
+    RWKV-6: the matrix state ``s`` (float32) and the last input of the
+    time mix.  Both hold ``x_prev_ffn``, the channel mix's last input."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    if spec.kind == "rglru":
+        ds = spec.d_state or d_model
+        return {"h": zeros(batch, ds, dt=torch.float32),
+                "conv": zeros(batch, spec.conv_width - 1, ds),
+                "x_prev_ffn": zeros(batch, d_model)}
+    n_heads = spec.n_heads or d_model // 64
+    dk = d_model // n_heads
+    return {"s": zeros(batch, n_heads, dk, dk, dt=torch.float32),
+            "x_prev": zeros(batch, d_model),
+            "x_prev_ffn": zeros(batch, d_model)}
+
+
 def init_layer_cache(spec: LayerSpec, batch: int, max_len: int, dtype,
-                     device=None) -> dict:
-    if spec.mixer == "spectral" and spec.ffn != "rwkv_cm" \
-            and not spec.cross_attn:
-        return {}  # the FNet mixer keeps no state
-    if spec.mixer != "attn" or spec.ffn == "rwkv_cm":
-        raise NotImplementedError(f"{spec.mixer}/{spec.ffn} layer cache: "
-                                  f"{LM_ITEM} (recurrent layers)")
+                     device=None, d_model=None) -> dict:
+    """One layer's cache: ``self`` for attention, ``rec`` for a recurrent
+    mixer (which needs ``d_model``; it also holds the RWKV channel mix's
+    ``x_prev_ffn``); the FNet mixer keeps none."""
     if spec.cross_attn:
-        raise NotImplementedError(f"cross-attention cache: {LM_ITEM} "
+        raise NotImplementedError(f"cross-attention cache: {LM_ITEM}c "
                                   "(encoder-decoder)")
-    return {"self": init_attn_cache(spec.attn, batch, max_len, dtype,
-                                    device)}
+    if spec.mixer == "attn":
+        return {"self": init_attn_cache(spec.attn, batch, max_len, dtype,
+                                        device)}
+    if spec.mixer in ("rglru", "rwkv6"):
+        if d_model is None:
+            raise ValueError(f"a {spec.mixer} layer cache needs d_model")
+        return {"rec": init_recurrent_cache(spec.recurrent, d_model, batch,
+                                            dtype, device)}
+    return {}
 
 
 def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,

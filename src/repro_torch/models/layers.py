@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, RoPE, dense FFNs, embeddings.
+"""Shared layer primitives: norms, RoPE, dense FFNs (and the RWKV-6
+channel mix), token shift, embeddings.
 
 Port of ``repro/models/layers.py``.  The reference's parameter pytrees
 become ``nn.Module``s whose parameters carry the reference's names and
@@ -6,9 +7,6 @@ shapes (fp32 masters); ``init_*`` builds one from a ``torch.Generator``
 and ``*_fwd`` consumes activations in the compute dtype, casting each
 weight to it as the reference does (a no-op once the weights were cast
 at load, :func:`repro_torch.train.train_step.cast_to_compute`).
-
-The RWKV channel mix (``ffn="rwkv_cm"``, ``token_shift``) waits for the
-recurrent slice (``ROADMAP.md`` queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -19,9 +17,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-RECURRENT_ITEM = "ROADMAP.md queue 1 item 8 (recurrent layers)"
-
 
 def master_param(*shape, device=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=torch.float32,
@@ -108,7 +103,12 @@ class FFN(nn.Module):
             self.w_down = master_param(d_ff, d, device=device)
             self.b_down = master_param(d, device=device)
         elif kind == "rwkv_cm":
-            raise NotImplementedError(f"ffn 'rwkv_cm': {RECURRENT_ITEM}")
+            # RWKV-6 channel mix: token-shift mix + squared-relu gate
+            self.mu_k = master_param(d, device=device)
+            self.mu_r = master_param(d, device=device)
+            self.w_k = master_param(d, d_ff, device=device)
+            self.w_v = master_param(d_ff, d, device=device)
+            self.w_r = master_param(d, d, device=device)
         else:
             raise ValueError(kind)
 
@@ -122,6 +122,12 @@ def init_ffn(d: int, d_ff: int, kind: str, generator=None,
         p.b_up.data.zero_()
         truncated_normal_(p.w_down.data, std_out, generator)
         p.b_down.data.zero_()
+    elif kind == "rwkv_cm":
+        p.mu_k.data.fill_(0.5)
+        p.mu_r.data.fill_(0.5)
+        truncated_normal_(p.w_k.data, std_in, generator)
+        truncated_normal_(p.w_v.data, std_out, generator)
+        truncated_normal_(p.w_r.data, std_in, generator)
     else:
         truncated_normal_(p.w_gate.data, std_in, generator)
         truncated_normal_(p.w_up.data, std_in, generator)
@@ -129,9 +135,11 @@ def init_ffn(d: int, d_ff: int, kind: str, generator=None,
     return p
 
 
-def ffn_fwd(p: FFN, x: torch.Tensor, kind: str) -> torch.Tensor:
+def ffn_fwd(p: FFN, x: torch.Tensor, kind: str,
+            x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B, S, D).  ``jax.nn.gelu`` defaults to the tanh approximation,
-    so gelu and geglu take it here too."""
+    so gelu and geglu take it here too.  ``x_prev`` is the token-shift
+    input of rwkv_cm: x shifted right by one along S (:func:`token_shift`)."""
     dt = x.dtype
     if kind in ("swiglu", "geglu"):
         g = x @ p.w_gate.to(dt)
@@ -141,7 +149,29 @@ def ffn_fwd(p: FFN, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "gelu":
         h = F.gelu(x @ p.w_up.to(dt) + p.b_up.to(dt), approximate="tanh")
         return h @ p.w_down.to(dt) + p.b_down.to(dt)
+    if kind == "rwkv_cm":
+        if x_prev is None:
+            raise ValueError("rwkv_cm needs x_prev")
+        mk, mr = p.mu_k.to(dt), p.mu_r.to(dt)
+        xk = x * mk + x_prev * (1 - mk)
+        xr = x * mr + x_prev * (1 - mr)
+        k = torch.relu(xk @ p.w_k.to(dt)).square()
+        r = torch.sigmoid(xr @ p.w_r.to(dt))
+        return r * (k @ p.w_v.to(dt))
     raise ValueError(kind)
+
+
+def token_shift(x: torch.Tensor,
+                prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, S, D) shifted one step right along S; position 0 filled from
+    ``prev`` (B, D) (the decode cache) or zeros."""
+    shifted = torch.empty_like(x)
+    shifted[:, 1:] = x[:, :-1]
+    if prev is None:
+        shifted[:, 0] = 0
+    else:
+        shifted[:, 0] = prev.to(x.dtype)
+    return shifted
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Model assembly: embedding -> stages of layer patterns -> logits.
 
 Port of ``repro/models/model.py`` for attention stacks (GQA and MLA)
-with dense or MoE FFNs (``models/moe.py``) and the parameter-free
-spectral (FNet) mixer (``models/spectral.py``).  The
+with dense or MoE FFNs (``models/moe.py``), the parameter-free spectral
+(FNet) mixer (``models/spectral.py``) and the linear-recurrence mixers
+(RG-LRU and RWKV-6 with its channel mix, ``models/recurrent.py``).  The
 reference scans each stage's ``repeat`` groups over parameters stacked on
 a leading repeat axis; here a stage is an ``nn.ModuleList`` of its layers,
 group by group (layer ``t * len(pattern) + pi`` is pattern entry ``pi`` of
@@ -13,14 +14,16 @@ carries a reference parameter tree across.
 Three modes share one layer implementation:
   train    full-sequence pass, no cache I/O (inference only in this
            slice: the teacher-forcing oracle; no gradients, no remat)
-  prefill  full sequence + writes the KV or latent caches (serving cold
-           start)
+  prefill  full sequence + writes the KV, latent or recurrent caches
+           (serving cold start)
   decode   single token against the caches (serving steady state)
 
-Recurrent, cross-attention, encoder and prefix-embed paths, and the
-sharded context (``ShardCtx``, which would route MoE layers through
-``models/moe_sharded.py``), wait for their slices (``ROADMAP.md`` queue
-1 item 8) and raise ``NotImplementedError``.
+Every cache is written in place (``copy_`` into the tensors that
+:func:`init_caches` made), so ``forward`` returns the caches it was
+given.  Cross-attention, encoder and prefix-embed paths (``ROADMAP.md``
+queue 1 item 8c) and the sharded context (``ShardCtx``, item 8e, which
+would route MoE layers through ``models/moe_sharded.py`` and recurrent
+layers through ``parallel/seqscan.py``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import kvcache as kc
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.attention import MaskSpec
 from repro_torch.models.config import LayerSpec, ModelConfig
 
@@ -48,16 +52,7 @@ class Ctx(NamedTuple):
     start: int                     # global position of q_pos[0]
     prefix_len: int                # prefix-LM bidirectional span
     kv_block: int
-
-
-def _unported(spec: LayerSpec) -> Optional[str]:
-    """What of the layer this slice does not serve (the RWKV channel mix
-    raises in its own ``init_ffn``)."""
-    if spec.mixer not in ("attn", "spectral"):
-        return f"mixer {spec.mixer!r}"
-    if spec.cross_attn:
-        return "cross-attention"
-    return None
+    scan_chunk: Optional[int] = None   # recurrent chunk override
 
 
 # --------------------------------------------------------------------------
@@ -65,22 +60,31 @@ def _unported(spec: LayerSpec) -> Optional[str]:
 # --------------------------------------------------------------------------
 
 class Layer(nn.Module):
-    """One layer: ``ln1``, the token mixer (GQA or MLA), ``ln2``, the
-    channel mixer (a dense FFN or MoE).  The spectral mixer has no
-    parameters (``mixer`` is None)."""
+    """One layer: ``ln1``, the token mixer (GQA, MLA, RG-LRU or RWKV-6),
+    ``ln2``, the channel mixer (a dense FFN, the RWKV channel mix or
+    MoE).  The spectral mixer has no parameters (``mixer`` is None)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, generator=None,
                  device=None):
         super().__init__()
-        what = _unported(spec)
-        if what is not None:
-            raise NotImplementedError(f"{what}: {LM_ITEM}")
+        if spec.cross_attn:
+            raise NotImplementedError(f"cross-attention: {LM_ITEM}c")
         d = cfg.d_model
         self.ln1 = L.init_norm(cfg.norm, d, device)
         self.ln2 = L.init_norm(cfg.norm, d, device)
-        self.mixer = (None if spec.mixer == "spectral" else
-                      attn_lib.init_attention(d, spec.attn, generator,
-                                              device))
+        if spec.mixer == "spectral":
+            self.mixer = None
+        elif spec.mixer == "rglru":
+            self.mixer = rec_lib.init_rglru(d, spec.recurrent, generator,
+                                            device)
+        elif spec.mixer == "rwkv6":
+            self.mixer = rec_lib.init_rwkv6(d, spec.recurrent, generator,
+                                            device)
+        elif spec.mixer == "attn":
+            self.mixer = attn_lib.init_attention(d, spec.attn, generator,
+                                                 device)
+        else:
+            raise ValueError(spec.mixer)
         self.ffn = (moe_lib.init_moe(d, spec.moe, generator, device)
                     if spec.ffn == "moe" else
                     L.init_ffn(d, cfg.d_ff, spec.ffn, generator, device))
@@ -121,6 +125,29 @@ def _self_attention(p: Layer, h, spec: LayerSpec, cfg: ModelConfig,
     return y, cache
 
 
+def _recurrent(p: Layer, h, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
+               cache):
+    """The RG-LRU or RWKV-6 mixer; outside train mode it starts from the
+    cache's state and writes the new state into it in place."""
+    r = spec.recurrent
+    rc = None if ctx.mode == "train" else cache["rec"]
+    if r.kind == "rglru":
+        state = None if rc is None else rec_lib.RGLRUState(h=rc["h"],
+                                                           conv=rc["conv"])
+        y, new = rec_lib.rglru_fwd(p.mixer, h, r, state, ctx.scan_chunk)
+        if rc is not None:
+            rc["h"].copy_(new.h)
+            rc["conv"].copy_(new.conv)
+    else:
+        state = None if rc is None else rec_lib.RWKVState(
+            s=rc["s"], x_prev=rc["x_prev"])
+        y, new = rec_lib.rwkv6_fwd(p.mixer, h, r, state, ctx.scan_chunk)
+        if rc is not None:
+            rc["s"].copy_(new.s)
+            rc["x_prev"].copy_(new.x_prev)
+    return y, cache
+
+
 def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
               cache):
     """-> (x, cache).  The reference's third output, the MoE auxiliary
@@ -130,12 +157,21 @@ def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
     if spec.mixer == "spectral":
         from repro_torch.models.spectral import spectral_mixer
         y = spectral_mixer(h)
-    else:
+    elif spec.mixer == "attn":
         y, cache = _self_attention(p, h, spec, cfg, ctx, cache)
+    else:
+        y, cache = _recurrent(p, h, spec, cfg, ctx, cache)
     x = x + y
     h2 = L.norm_fwd(p.ln2, x, cfg.norm, cfg.norm_eps)
     if spec.ffn == "moe":
         return x + moe_lib.moe_fwd(p.ffn, h2, spec.moe), cache
+    if spec.ffn == "rwkv_cm":
+        rc = None if ctx.mode == "train" else cache["rec"]
+        prev = None if rc is None else rc["x_prev_ffn"]
+        y = L.ffn_fwd(p.ffn, h2, "rwkv_cm", x_prev=L.token_shift(h2, prev))
+        if rc is not None:
+            rc["x_prev_ffn"].copy_(h2[:, -1])
+        return x + y, cache
     return x + L.ffn_fwd(p.ffn, h2, spec.ffn), cache
 
 
@@ -153,7 +189,8 @@ class Model(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if cfg.encoder is not None or cfg.frontend != "none":
-            raise NotImplementedError(f"encoder / modality frontend: {LM_ITEM}")
+            raise NotImplementedError(f"encoder / modality frontend: "
+                                      f"{LM_ITEM}c")
         self.embed = L.init_embedding(cfg.vocab, cfg.d_model,
                                       cfg.tie_embeddings, generator, device)
         self.stages = nn.ModuleList(
@@ -173,7 +210,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Per-layer caches mirroring ``Model.stages``: ``caches[si][li]``, on
     ``device`` (default: the current CUDA card)."""
     device = resolve_device(device)
-    return [[kc.init_layer_cache(spec, batch, max_len, dtype, device)
+    return [[kc.init_layer_cache(spec, batch, max_len, dtype, device,
+                                 d_model=cfg.d_model)
              for _ in range(stage.repeat) for spec in stage.pattern]
             for stage in cfg.stages]
 
@@ -187,18 +225,19 @@ def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str = "train", caches=None, start: int = 0,
             prefix_embeds: Optional[torch.Tensor] = None,
             enc_out: Optional[torch.Tensor] = None, kv_block: int = 1024,
-            shard: Any = None):
+            scan_chunk: Optional[int] = None, shard: Any = None):
     """Token ids (B, S) -> (logits (B, S, vocab), caches).
 
     ``start``: global position of tokens[0] (the decode step index), a
     Python int.  Prefill and decode write ``caches`` in place and return
-    them; caches is None in train mode.
+    them; caches is None in train mode.  ``scan_chunk`` overrides the
+    recurrent layers' chunk.
     """
     if shard is not None:
-        raise NotImplementedError(f"sharded forward (ShardCtx): {LM_ITEM}")
+        raise NotImplementedError(f"sharded forward (ShardCtx): {LM_ITEM}e")
     if prefix_embeds is not None or enc_out is not None:
         raise NotImplementedError(f"prefix embeddings / encoder memory: "
-                                  f"{LM_ITEM}")
+                                  f"{LM_ITEM}c")
     if mode != "train" and caches is None:
         raise ValueError(f"mode {mode!r} needs caches")
     dtype = getattr(torch, cfg.dtype)
@@ -206,7 +245,7 @@ def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
     q_pos = start + torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
     ctx = Ctx(mode=mode, q_pos=q_pos, start=start, prefix_len=0,
-              kv_block=kv_block)
+              kv_block=kv_block, scan_chunk=scan_chunk)
     for si, stage in enumerate(cfg.stages):
         for li, layer in enumerate(model.stages[si]):
             cache = caches[si][li] if caches is not None else None

@@ -732,3 +732,50 @@ def test_moe_models_on_the_card_match_the_cpu(cuda_device, arch):
     top = want.abs().max().item()
     assert (got - want).abs().max().item() <= TF_TOL * top
     assert (got_dec - want_dec).abs().max().item() <= TF_TOL * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [256, 128])
+@pytest.mark.parametrize("window", [64, None])
+def test_gqa_head_dim_256_takes_the_blockwise_core_on_the_card(
+        cuda_device, dtype, head_dim, window):
+    """``gqa_fwd`` over a segment at 0 (the kernel's case) on the card
+    against the same call on the CPU in float32 on the same values: at
+    head_dim 256 (gemma3, recurrentgemma) it runs the blockwise core and
+    launches no kernel; at 128 it launches ``flash_attention`` once, on
+    ``wgmma`` for bf16.  Float32 within ATTN_TOL; bf16 within
+    ATTN_BF16_REL·max|want| + ATTN_TOL (the layer rounds its projections
+    to bf16 around the core, so the bound is taken on the output's
+    largest value rather than on each element)."""
+    import copy
+    from repro_torch.models.attention import MaskSpec, gqa_fwd, init_gqa
+    from repro_torch.models.config import AttentionSpec
+    from repro_torch.train import cast_to_compute
+    a = AttentionSpec(kind="gqa", n_heads=8, n_kv_heads=4, head_dim=head_dim,
+                      window=window)
+    p = cast_to_compute(init_gqa(256, a, torch.Generator().manual_seed(0),
+                                 "cpu"), dtype)
+    x = torch.randn(2, 256, 256,
+                    generator=torch.Generator().manual_seed(1)).to(dtype)
+    pos = torch.arange(256, dtype=torch.int32)
+    ms = MaskSpec(causal=True, window=window)
+    want, _ = gqa_fwd(copy.deepcopy(p).float(), x.float(), a, ms, pos,
+                      start=0)
+    before = launch_counts()
+    got, _ = gqa_fwd(p.to(cuda_device), x.to(cuda_device), a, ms,
+                     pos.to(cuda_device), start=0)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    launched = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    if head_dim > flash_attention.D_MAX:
+        assert not any(launched.values()), launched
+    else:
+        variant = flash_attention.TC if dtype == torch.bfloat16 \
+            else flash_attention.FFMA
+        assert launched.get(flash_attention.NAME) == 1, launched
+        assert launched.get(variant) == 1, launched
+    assert got.dtype == dtype
+    tol = ATTN_TOL if dtype == torch.float32 \
+        else ATTN_BF16_REL * want.abs().max().item() + ATTN_TOL
+    assert (got.cpu().float() - want).abs().max().item() <= tol

@@ -48,6 +48,11 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert {"repro_torch.models.moe", "repro_torch.models.moe_sharded",
             "repro_torch.configs.deepseek_v2_236b",
             "repro_torch.configs.mixtral_8x22b"} <= set(_port_modules())
+    assert {"repro_torch.models.recurrent", "repro_torch.parallel.seqscan",
+            "repro_torch.configs.gemma3_4b", "repro_torch.configs.yi_9b",
+            "repro_torch.configs.yi_34b",
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.configs.rwkv6_3b"} <= set(_port_modules())
 
 
 def _imported_roots(path: str) -> set:

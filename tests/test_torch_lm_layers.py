@@ -87,8 +87,22 @@ def test_ffn_matches_reference(kind):
 
 
 def test_rwkv_channel_mix_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        L.init_ffn(16, 32, "rwkv_cm")
+    """Its slice has come: the RWKV channel mix, from the reference's
+    tree, against the reference's ``ffn_fwd`` (the token-shifted input
+    from ``token_shift``)."""
+    ref_p = ref_L.init_ffn(jax.random.PRNGKey(0), 16, 32, "rwkv_cm")
+    p = L.init_ffn(16, 32, "rwkv_cm")
+    load_tree(p, _tree(ref_p), "rwkv_cm")
+    x = _np(6, 2, 5, 16)
+    prev = _np(7, 2, 16)
+    want = ref_L.ffn_fwd(ref_p, jnp.asarray(x), "rwkv_cm",
+                         x_prev=ref_L.token_shift(jnp.asarray(x),
+                                                  jnp.asarray(prev)))
+    got = L.ffn_fwd(p, torch.from_numpy(x), "rwkv_cm",
+                    x_prev=L.token_shift(torch.from_numpy(x),
+                                         torch.from_numpy(prev)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("tie,softcap,scale_by_dim", [(False, 0.0, False),
@@ -154,11 +168,11 @@ def test_blockwise_empty_slots_masked():
 # the GQA layer: kernel path and blockwise path
 # --------------------------------------------------------------------------
 
-def _gqa_pair(window=16):
-    a = AttentionSpec(kind="gqa", n_heads=4, n_kv_heads=2, head_dim=16,
-                      window=window)
+def _gqa_pair(window=16, head_dim=16):
+    a = AttentionSpec(kind="gqa", n_heads=4, n_kv_heads=2,
+                      head_dim=head_dim, window=window)
     ref_a = RefAttentionSpec(kind="gqa", n_heads=4, n_kv_heads=2,
-                             head_dim=16, window=window)
+                             head_dim=head_dim, window=window)
     ref_p = ref_attn.init_gqa(jax.random.PRNGKey(2), 32, ref_a)
     p = init_attention(32, a)
     load_tree(p, _tree(ref_p), "gqa")
@@ -206,6 +220,31 @@ def test_gqa_kernel_dispatch_is_one_case(monkeypatch):
     gqa_fwd(p, x[:, :1], a, MaskSpec(window=16), pos[:1],
             kv=gqa_project_kv(p, x, a, pos), k_pos=pos, start=0)
     assert not calls
+    # head dims past the kernel's D_MAX (gemma3, recurrentgemma: 256) take
+    # the blockwise core, on the CPU as on the card
+    a, _, _, p = _gqa_pair(head_dim=256)
+    for start, ms in ((0, MaskSpec(window=16)), (0, MaskSpec())):
+        gqa_fwd(p, x, a, ms, pos, start=start)
+    assert not calls
+
+
+@pytest.mark.parametrize("window", [16, None])
+def test_gqa_head_dim_256_matches_reference(monkeypatch, window):
+    """The segment at 0 that the kernel would take at head_dim <= 128
+    goes to the blockwise core at 256, and gives the reference's
+    ``gqa_fwd``."""
+    import repro_torch.models.attention as attn_mod
+    monkeypatch.setattr(attn_mod, "flash_attention", None)   # never called
+    a, ref_a, ref_p, p = _gqa_pair(window=window, head_dim=256)
+    x = _np(19, 2, 40, 32)
+    pos = np.arange(40, dtype=np.int32)
+    ms = MaskSpec(causal=True, window=window)
+    want, _ = ref_attn.gqa_fwd(ref_p, jnp.asarray(x), ref_a,
+                               ref_attn.MaskSpec(*ms), jnp.asarray(pos),
+                               kv_block=16)
+    got, _ = attention_fwd(p, torch.from_numpy(x), a, ms,
+                           torch.from_numpy(pos), start=0, kv_block=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL)
 
 
 def test_gqa_decode_over_a_ring_cache_matches_reference():
@@ -293,7 +332,9 @@ def test_write_attn_cache_refuses_a_wrapping_segment():
 
 
 def test_layer_cache_of_unported_layers_raises():
-    with pytest.raises(NotImplementedError, match="recurrent"):
+    """The cross-attention cache waits for its slice; a recurrent layer's
+    cache (ported) refuses to be built without ``d_model``."""
+    with pytest.raises(ValueError, match="d_model"):
         kc.init_layer_cache(LayerSpec(mixer="rglru"), 1, 8, torch.float32)
     with pytest.raises(NotImplementedError, match="cross-attention"):
         kc.init_layer_cache(LayerSpec(attn=AttentionSpec(), cross_attn=True),
@@ -310,7 +351,9 @@ def test_registry_knows_every_reference_arch():
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("llama-7b")
     ported = ("h2o-danube-3-4b", "fnet-350m", "deepseek-v2-236b",
-              "mixtral-8x22b")
+              "mixtral-8x22b", "gemma3-4b", "yi-9b", "yi-34b",
+              "recurrentgemma-9b", "rwkv6-3b")
+    assert set(ARCHS) - set(ported) == {"whisper-base", "paligemma-3b"}
     for arch in ARCHS:
         if arch in ported:
             assert get_config(arch, smoke=True).name.startswith(arch)

@@ -185,7 +185,7 @@ def test_serve_cli_and_its_refusals(capsys):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main([])
     with pytest.raises(NotImplementedError, match="item 8"):
-        serve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
 
 
 def test_synth_tokens_are_the_reference_tokens():
