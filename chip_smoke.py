@@ -37,7 +37,10 @@ into ``build/``, then runs:
    the FFMA kernel in float32); then mixtral-8x22b's prefill and
    teacher-forcing shapes (B 2, S 6144 and 6145, 48 heads over 8,
    head_dim 128, window 4096, bf16), held the same way, on the
-   tensor-core kernel;
+   tensor-core kernel; then whisper-base's encoder shape (B 8, Sq = Skv =
+   1500, 8 heads over 8, head_dim 64, non-causal), bf16 on the
+   tensor-core kernel and float32, held the same way and timed beside
+   one ``scaled_dot_product_attention`` call and the operations bound;
 2. the main path on one rank at full size: ``Croft3D`` forward and
    inverse of the croft-1024 grid (1024^3 complex64, an 8 GiB field)
    with ``local_impl="pallas"``, checked against ``torch.fft.fftn``
@@ -198,14 +201,33 @@ into ``build/``, then runs:
    each rank's block within 1e-5 / 1e-4 of its slice of the meshless
    scan, and the counted collectives (2 Hillis-Steele rounds and a shift
    of the (decay, contribution) pair, one all-reduce);
-12. one JSON line on the kernels, the card's name and power limit, and
+12. the encoder, cross-attention and prefix-LM serving, each at full
+   width and depth with seeded bf16 weights, 8 requests and 32 greedy
+   tokens: (12a) whisper-base (6 encoder + 6 decoder layers, d 512),
+   1500 stub frames a request (seeded normals on the card) and a
+   224-token ``synth_tokens`` prompt: ``encode`` timed alone, the
+   prefill (which encodes) with exactly 12 ``flash_attention`` launches,
+   all ``wgmma`` (6 non-causal in the encoder, 6 causal in the decoder),
+   none a decode step, layer 0's encoder q, k, v held against the plain
+   version, layer 0's cross cache against ``gqa_project_kv`` of the
+   encoder memory (1e-5 * max|ref|), the decode step's busy time against
+   the bytes of the weights and the cross K/V over the memory rate,
+   bf16 teacher forcing (5e-2) and float32 teacher forcing at full
+   depth, S 224 (2e-4); (12b) paligemma-3b (18 layers, d 2048, tied
+   257216-token vocabulary) with 256 stub patch embeddings ahead of a
+   256-token prompt: no ``flash_attention`` launch (prefix-LM, head_dim
+   256), the train pass's logits over the token positions only, bf16
+   teacher forcing, float32 teacher forcing at 2 layers over 256 + 512
+   positions; wall, device time by kernel of the prefill and of one
+   decode step, peak memory for both;
+13. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
 3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, 6c, 7a,
 7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a,
-10b and 11b-11e, 10c's dispatch; in 3g and 5 before each backward too)
-and read just after it.
+10b, 11b-11e, 12a and 12b, 10c's dispatch; in 3g and 5 before each
+backward too) and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -842,6 +864,10 @@ ATTN_CASES = (
     (1, 200, 300, 4, 2, 32, False, 50, "float32"),
     # rows past skv + window - 1 see no valid key: every chunk is walked
     (1, 300, 100, 2, 1, 64, True, 32, "float32"),
+    # whisper-base's encoder self-attention (phase 12a): 1500 frames,
+    # non-causal
+    (8, 1500, 1500, 8, 8, 64, False, None, "bfloat16"),
+    (8, 1500, 1500, 8, 8, 64, False, None, "float32"),
 )
 
 
@@ -977,8 +1003,55 @@ def phase_attention_kernel(dev) -> dict:
         out["flash_attention"]["max_abs_err"] = max(
             out["flash_attention"]["max_abs_err"], err)
         del q, k, v, got, want
+    phase_attention_whisper(dev, gen, out["flash_attention"])
     torch.cuda.empty_cache()
     return out
+
+
+def phase_attention_whisper(dev, gen, row: dict) -> None:
+    """Times whisper-base's encoder self-attention (B 8, 1500 frames, 8
+    heads over 8, head_dim 64, non-causal, q pre-scaled as the model
+    passes it), bf16 and float32, beside one
+    ``scaled_dot_product_attention`` call and its bound; bf16 must take
+    the tensor-core kernel.  Its parity is held by the two ATTN_CASES rows
+    at this shape, and on the model's own inputs in phase 12a.  Three
+    copies of the inputs take turns, so each call finds them past the
+    50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, kv, d = WHISPER_ATTN
+    pairs = attention_pairs(b, s, s, h, False, None)
+    for dt, peak in (("bfloat16", BF16_FLOP_S), ("float32", FP32_FLOP_S)):
+        dtype = getattr(torch, dt)
+        copies = [((torch.randn(b, s, h, d, device=dev, generator=gen)
+                    * d ** -0.5).to(dtype),
+                   *(torch.randn(b, s, kv, d, device=dev,
+                                 generator=gen).to(dtype) for _ in range(2)))
+                  for _ in range(3)]
+        q, k, v = copies[0]
+        which = fa.variant(q, k, v)
+        if dtype == torch.bfloat16:
+            check(which == fa.TC, "whisper's encoder shape is not on wgmma")
+        runs = [lambda q=q, k=k, v=v: fa.flash_attention(
+            q, k, v, causal=False, scale=1.0) for q, k, v in copies]
+        libs = [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=1.0) for q, k, v in copies]
+        # q, k and v read once, the output (q's shape) written once
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound_ms(nbytes, 4.0 * d * pairs, peak)
+        ms = time_batched_ms(runs, launches=21)
+        lib_ms = time_batched_ms(libs, launches=21)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=False, scale=1.0), reps=3, warmup=1)
+        print(f"[1c] flash_attention at whisper's encoder shape ({b}, {s}, "
+              f"{h}, {d}) kv={kv} non-causal {dt}: {which}; {ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain "
+              f"{plain_ms:.3f} ms", flush=True)
+        row[f"whisper_{dt}"] = dict(ms=ms, library_ms=lib_ms, bound_ms=b_ms,
+                                    bound_by=b_by, plain_ms=plain_ms)
+        del copies, q, k, v, runs, libs
 
 
 # ---------------------------------------------------------------------------
@@ -3004,18 +3077,23 @@ class _DroppedPairs:
 
 
 class _FirstAttention:
-    """Keeps a copy of the first ``flash_attention`` call that the
-    attention layer makes inside the scope (layer 0's q, k, v and options)
-    and counts its calls, by wrapping the name ``models.attention`` calls."""
+    """Keeps a copy of the first ``flash_attention`` call of each distinct
+    signature (q and k shapes, dtype, options) that the attention layers
+    make inside the scope, and counts the calls, by wrapping the name
+    ``models.attention`` calls.  whisper's prefill has two: the encoder's
+    non-causal self-attention over the frames and the decoder's causal
+    one over the prompt."""
 
     def __enter__(self):
         from repro_torch.models import attention
         self._lib, self._inner = attention, attention.flash_attention
-        self.calls, self.first = 0, None
+        self.calls, self.firsts = 0, {}
 
         def flash_attention(q, k, v, **kw):
-            if self.first is None:
-                self.first = ((q.clone(), k.clone(), v.clone()), kw)
+            key = (tuple(q.shape), tuple(k.shape), q.dtype,
+                   tuple(sorted(kw.items())))
+            if key not in self.firsts:
+                self.firsts[key] = ((q.clone(), k.clone(), v.clone()), kw)
             self.calls += 1
             return self._inner(q, k, v, **kw)
         attention.flash_attention = flash_attention
@@ -3024,23 +3102,30 @@ class _FirstAttention:
     def __exit__(self, *exc):
         self._lib.flash_attention = self._inner
 
-    def check_first(self, tag: str) -> None:
-        """The wrapper on the captured inputs against the plain version,
-        element by element (``attention_err``), on the wgmma variant."""
+    def check_firsts(self, tag: str, expect: int | None = None) -> None:
+        """The wrapper on each captured call's inputs against the plain
+        version, element by element (``attention_err``), on the wgmma
+        variant; with ``expect``, there must be that many signatures."""
         import torch
         from repro_torch.kernels import flash_attention as fa
-        (q, k, v), kw = self.first
-        got = fa.flash_attention(q, k, v, **kw)
-        want = fa.flash_attention_plain(q, k, v, **kw)
-        err, share = attention_err(got, want)
-        print(f"[{tag}] flash_attention on layer 0's prefill inputs "
-              f"{tuple(q.shape)} kv={k.shape[2]} {kw}: max_abs_err "
-              f"{err:.3e}, worst err/tol {share:.3f}", flush=True)
-        check(share <= 1.0 and bool(torch.isfinite(got).all()),
-              f"phase {tag}: flash_attention on layer 0's inputs")
-        check(fa.variant(q, k, v) == fa.TC,
-              f"phase {tag}: layer 0's inputs are not on wgmma")
-        self.first = None
+        check(expect is None or len(self.firsts) == expect,
+              f"phase {tag}: flash_attention call signatures "
+              f"{list(self.firsts)}, {expect} expected")
+        for (q, k, v), kw in self.firsts.values():
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            err, share = attention_err(got, want)
+            print(f"[{tag}] flash_attention on the first prefill call at "
+                  f"{tuple(q.shape)} kv={tuple(k.shape)} {kw}: max_abs_err "
+                  f"{err:.3e}, worst err/tol {share:.3f}", flush=True)
+            check(share <= 1.0 and bool(torch.isfinite(got).all()),
+                  f"phase {tag}: flash_attention on the prefill's inputs "
+                  f"{tuple(q.shape)} {kw}")
+            check(fa.variant(q, k, v) == fa.TC,
+                  f"phase {tag}: the prefill's inputs {tuple(q.shape)} are "
+                  f"not on wgmma")
+            del got, want
+        self.firsts = {}
 
 
 def _serve_moe(dev, tag: str, arch: str, layers: int, prompt: int) -> tuple:
@@ -3051,8 +3136,8 @@ def _serve_moe(dev, tag: str, arch: str, layers: int, prompt: int) -> tuple:
     first decode step held against the bf16 train pass over the prompt
     and its first token.  Returns the launches of the served prefill, of
     its decode steps and of the teacher-forcing runs, and the attention
-    layer's ``flash_attention`` calls in the served prefill (the first
-    held against the plain version on its own inputs)."""
+    layer's ``flash_attention`` calls in the served prefill (the first of
+    each signature held against the plain version on its own inputs)."""
     import gc
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3082,8 +3167,7 @@ def _serve_moe(dev, tag: str, arch: str, layers: int, prompt: int) -> tuple:
                                                             caches))
     prefill_counts = launch_counts()
     dropped.check_calls(layers, tag)
-    if attn.first is not None:
-        attn.check_first(tag)
+    attn.check_firsts(tag)
     finite = torch.isfinite(logits).all()
     tok = greedy_sample(logits)[:, None]
     out = [tok]
@@ -3432,34 +3516,66 @@ def _cut(arch: str, layers=None, dtype=None):
     return dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
 
 
-def _tf_bf16(dev, tag: str, model, cfg, prompts, first, hold: bool) -> dict:
+def _frontend(cfg, stub) -> tuple:
+    """``make_serve_steps``' prefill keywords for ``stub`` (an
+    encoder-decoder's frames, a prefix-LM's prefix embeddings), the
+    prefix's length and the cross caches' ``enc_len``."""
+    if stub is None:
+        return {}, 0, 0
+    if cfg.encoder is not None:
+        return {"frames": stub}, 0, stub.shape[1]
+    return {"prefix_embeds": stub}, stub.shape[1], 0
+
+
+def _forward_inputs(model, cfg, stub) -> dict:
+    """``forward``'s keywords for ``stub`` in train and prefill mode: the
+    encoder memory of the frames, or the prefix embeddings."""
+    from repro_torch.models import encode
+    if stub is None:
+        return {}
+    if cfg.encoder is not None:
+        return {"enc_out": encode(model, cfg, stub, KV_BLOCK)}
+    return {"prefix_embeds": stub}
+
+
+def _tf_bf16(dev, tag: str, model, cfg, prompts, first, hold: bool,
+             stub=None) -> dict:
     """Teacher forcing in bf16: the first decode step after a fresh
-    prefill of ``prompts`` == the train pass over the prompt and the
-    token ``first``, within BF16_TF_TOL of max|ref| when ``hold`` (else a
-    reading only); returns the launches."""
+    prefill of ``prompts`` (after ``stub``'s frames or prefix, when
+    given) == the train pass over the prompt and the token ``first``,
+    within BF16_TF_TOL of max|ref| when ``hold`` (else a reading only);
+    the train pass's logits cover the token positions only.  Returns the
+    launches."""
     import gc
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import forward, init_caches
     from repro_torch.train import make_serve_steps
-    prompt = prompts.shape[1]
-    prefill, decode = make_serve_steps(cfg, BATCH, prompt + 1,
+    batch, prompt = prompts.shape
+    frontend, prefix, enc_len = _frontend(cfg, stub)
+    max_len = prefix + prompt + 1
+    prefill, decode = make_serve_steps(cfg, batch, max_len,
                                        kv_block=KV_BLOCK, device=dev)
-    caches = init_caches(cfg, BATCH, prompt + 1, dtype=torch.bfloat16,
-                         device=dev)
+    caches = init_caches(cfg, batch, max_len, enc_len=enc_len,
+                         dtype=torch.bfloat16, device=dev)
     seq = torch.cat([torch.as_tensor(prompts, device=dev), first], dim=1)
     reset_launch_counts()
-    _, caches = prefill(model, prompts, caches)
-    first_decode, _ = decode(model, first, caches, prompt)
+    _, caches = prefill(model, prompts, caches, **frontend)
+    first_decode, _ = decode(model, first, caches, prefix + prompt)
     del caches
-    ref, _ = forward(model, cfg, seq, mode="train", kv_block=KV_BLOCK)
+    ref, _ = forward(model, cfg, seq, mode="train", kv_block=KV_BLOCK,
+                     **_forward_inputs(model, cfg, stub))
     counts = launch_counts()
+    check(ref.shape[:2] == seq.shape, f"phase {tag}: train logits "
+          f"{tuple(ref.shape)} for {tuple(seq.shape)} tokens after "
+          f"{prefix} prefix positions")
     ref = ref[:, prompt].float()
     top = ref.abs().max().item()
     err = (first_decode.float() - ref).abs().max().item()
+    after = f" after {prefix} prefix positions" if prefix else ""
     print(f"[{tag}] teacher forcing bf16, {cfg.n_layers} layers, "
-          f"S={prompt}: decode vs train max_abs_err {err:.3e} "
-          f"({err / top:.2e}·max|ref|), tol {BF16_TF_TOL * top:.3e}"
+          f"S={prompt}{after}, logits over {seq.shape[1]} token positions: "
+          f"decode vs train max_abs_err {err:.3e} ({err / top:.2e}·max|ref|), tol {BF16_TF_TOL * top:.3e}"
           f"{'' if hold else ' (a reading, not held: see PERF.md §6)'}; "
           f"launches {counts}", flush=True)
     if hold:
@@ -3471,21 +3587,81 @@ def _tf_bf16(dev, tag: str, model, cfg, prompts, first, hold: bool) -> dict:
     return counts
 
 
-def _serve_lm(dev, tag: str, cfg, prompt: int, tf_layers=None) -> tuple:
-    """Prefill a BATCH x ``prompt`` prompt and decode GEN greedy tokens
-    (bf16, seeded weights), profile one prefill and one decode step (its
-    busy time against the weights' bytes over the memory rate), then the
-    bf16 teacher forcing (``_tf_bf16``): held at full depth, or, with
-    ``tf_layers``, read at full depth and held on the same config cut to
-    ``tf_layers`` layers.  Returns the launches of the served prefill,
-    of its decode steps and of the full-depth teacher forcing, and the
+def _check_cross_cache(tag: str, model, cfg, enc, caches) -> None:
+    """Layer 0's cross cache after the prefill against ``gqa_project_kv``
+    of the encoder memory ``enc``, within CROSS_TOL of max|ref|."""
+    import torch
+    from repro_torch.models.attention import gqa_project_kv
+    from repro_torch.models.model import _cross_spec
+    layer = model.stages[0][0]
+    pos = torch.arange(enc.shape[1], dtype=torch.int32, device=enc.device)
+    want = gqa_project_kv(layer.cross, enc, _cross_spec(
+        cfg.stages[0].pattern[0].attn), pos)
+    got = caches[0][0]["cross"]
+    for name, w in zip(("k", "v"), want):
+        top = w.float().abs().max().item()
+        err = (got[name].float() - w.float()).abs().max().item()
+        print(f"[{tag}] layer 0's cross cache {name} {tuple(w.shape)} vs "
+              f"gqa_project_kv of the encoder memory: max_abs_err {err:.3e} "
+              f"(tol {CROSS_TOL * top:.3e})", flush=True)
+        check(err <= CROSS_TOL * top, f"phase {tag}: cross cache {name} "
+              f"err {err}")
+
+
+def _decode_read_bytes(model, caches, batch: int,
+                       n_pos: int) -> tuple[int, int]:
+    """The bytes one decode step must read, as (weights, caches).  The
+    weights: the decoder's stages and final norm, and the head (the tied
+    table whole, or an untied head and the ``batch`` rows of the input
+    table it looks up); an encoder's weights serve only the prefill.  The
+    caches: every cross and recurrent tensor, and the slots of each self
+    cache that hold one of the ``n_pos`` positions written so far."""
+    def nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+    e = model.embed
+    weights = (nbytes(model.stages.parameters())
+               + nbytes(model.final_norm.parameters()))
+    if e.head is None:
+        weights += nbytes([e.tok])
+    else:
+        weights += (nbytes([e.head])
+                    + batch * e.tok.shape[1] * e.tok.element_size())
+    cache = 0
+    for layers in caches:
+        for layer in layers:
+            for kind, part in layer.items():
+                for name, t in part.items():
+                    if kind == "self" and name != "pos":
+                        cache += (nbytes([t]) * min(t.shape[1], n_pos)
+                                  // t.shape[1])
+                    else:
+                        cache += nbytes([t])
+    return weights, cache
+
+
+def _serve_lm(dev, tag: str, cfg, prompt: int, tf_layers=None,
+              batch: int = BATCH, stub=None) -> tuple:
+    """Prefill a ``batch`` x ``prompt`` prompt (after ``stub``: an
+    encoder-decoder's frames, which the prefill encodes, or a prefix-LM's
+    prefix embeddings) and decode GEN greedy tokens (bf16, seeded
+    weights), profile one prefill and one decode step (its busy time
+    against the bytes it must read, ``_decode_read_bytes``, over the
+    memory rate; the step sits at the last position, so every self-cache
+    position is written), then the bf16 teacher forcing (``_tf_bf16``):
+    held at full depth, or, with ``tf_layers``, read at full depth and
+    held on the same config cut to ``tf_layers`` layers.  An
+    encoder-decoder's ``encode`` is timed alone first, and layer 0's
+    cross cache after the prefill is held against ``gqa_project_kv`` of
+    the encoder memory.  Returns the launches of the served prefill, of
+    its decode steps and of the full-depth teacher forcing, and the
     attention layers' ``flash_attention`` calls in the served prefill
-    (the first held against the plain version on its inputs)."""
+    (the first of each signature held against the plain version on its
+    inputs)."""
     import dataclasses
     import gc
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import Stage, init_caches, init_params
+    from repro_torch.models import Stage, encode, init_caches, init_params
     from repro_torch.train import (cast_to_compute, greedy_sample,
                                    make_serve_steps)
     from repro_torch.train.data import synth_tokens
@@ -3497,20 +3673,30 @@ def _serve_lm(dev, tag: str, cfg, prompt: int, tf_layers=None) -> tuple:
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     peak_init = torch.cuda.max_memory_allocated(dev) / 2**30
-    max_len = prompt + GEN
-    prefill, decode = make_serve_steps(cfg, BATCH, max_len, kv_block=KV_BLOCK,
+    frontend, prefix, enc_len = _frontend(cfg, stub)
+    max_len = prefix + prompt + GEN
+    prefill, decode = make_serve_steps(cfg, batch, max_len, kv_block=KV_BLOCK,
                                        device=dev)
-    prompts = synth_tokens(SEED, 0, BATCH, prompt, cfg.vocab)
+    prompts = synth_tokens(SEED, 0, batch, prompt, cfg.vocab)
     torch.cuda.reset_peak_memory_stats(dev)
-    caches = init_caches(cfg, BATCH, max_len, dtype=torch.bfloat16,
-                         device=dev)
+    caches = init_caches(cfg, batch, max_len, enc_len=enc_len,
+                         dtype=torch.bfloat16, device=dev)
+    if cfg.encoder is not None:
+        _, t_cold = _wall(lambda: encode(model, cfg, stub, KV_BLOCK))
+        enc, t_warm = _wall(lambda: encode(model, cfg, stub, KV_BLOCK))
+        print(f"[{tag}] encode {tuple(stub.shape)}: {t_cold:.2f} ms (first "
+              f"call), {t_warm:.2f} ms (second)", flush=True)
     reset_launch_counts()
     with _FirstAttention() as attn:
-        (logits, caches), t_prefill = _wall(lambda: prefill(model, prompts,
-                                                            caches))
+        (logits, caches), t_prefill = _wall(lambda: prefill(
+            model, prompts, caches, **frontend))
     prefill_counts = launch_counts()
-    if attn.first is not None:
-        attn.check_first(tag)
+    # an encoder-decoder's prefill: the encoder's non-causal calls over the
+    # frames and the decoder's causal ones over the prompt
+    attn.check_firsts(tag, expect=2 if cfg.encoder is not None else None)
+    if cfg.encoder is not None:
+        _check_cross_cache(tag, model, cfg, enc, caches)
+        del enc
     finite = torch.isfinite(logits).all()
     tok = greedy_sample(logits)[:, None]
     out = [tok]
@@ -3518,7 +3704,7 @@ def _serve_lm(dev, tag: str, cfg, prompt: int, tf_layers=None) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(GEN - 1):
-        logits, caches = decode(model, tok, caches, prompt + i)
+        logits, caches = decode(model, tok, caches, prefix + prompt + i)
         finite &= torch.isfinite(logits).all()
         tok = greedy_sample(logits)[:, None]
         out.append(tok)
@@ -3530,29 +3716,31 @@ def _serve_lm(dev, tag: str, cfg, prompt: int, tf_layers=None) -> tuple:
     print(f"[{tag}] {cfg.name} bf16, {cfg.n_layers} layers, {n_params} "
           f"parameters ({weight_bytes / 2**30:.2f} GiB): init {t_init:.1f} "
           f"ms, peak {peak_init:.2f} GiB (fp32 masters); prefill "
-          f"{BATCH}x{prompt} {t_prefill:.2f} ms (first call); decode "
+          f"{batch}x{prompt} after {prefix} prefix positions "
+          f"{t_prefill:.2f} ms (first call); decode "
           f"{GEN - 1} steps {t_decode:.2f} ms ({t_decode / (GEN - 1):.2f} "
-          f"ms/step, {BATCH * (GEN - 1) / t_decode * 1e3:.1f} tok/s); peak "
+          f"ms/step, {batch * (GEN - 1) / t_decode * 1e3:.1f} tok/s); peak "
           f"{peak:.2f} GiB serving; flash_attention calls in the prefill "
           f"{attn.calls}; launches prefill {prefill_counts} decode "
           f"{decode_counts}; tokens {tokens[:, :8].tolist()}", flush=True)
     check(bool(finite), f"non-finite logits in phase {tag}")
-    profile_device(lambda: prefill(model, prompts, caches), tag, "prefill",
-                   10)
+    profile_device(lambda: prefill(model, prompts, caches, **frontend), tag,
+                   "prefill", 10)
     busy, _ = profile_device(
-        lambda: decode(model, tok, caches, prompt + GEN - 1), tag,
+        lambda: decode(model, tok, caches, prefix + prompt + GEN - 1), tag,
         "decode step", 8)
-    bound = weight_bytes / HBM_BYTES_S * 1e3
-    print(f"[{tag}] decode step busy {busy:.2f} ms against the weights' "
-          f"bytes bound {bound:.2f} ms ({weight_bytes / 1e9:.2f} GB over "
-          f"{HBM_BYTES_S / 1e12:.2f} TB/s; {bound / busy * 100:.0f} %)",
-          flush=True)
+    read_w, read_c = _decode_read_bytes(model, caches, batch, max_len)
+    bound = (read_w + read_c) / HBM_BYTES_S * 1e3
+    print(f"[{tag}] decode step busy {busy:.3f} ms against the bytes bound "
+          f"{bound:.3f} ms (weights it reads {read_w / 1e9:.4f} GB + caches "
+          f"{read_c / 1e9:.4f} GB over {HBM_BYTES_S / 1e12:.2f} TB/s; "
+          f"{bound / busy * 100:.1f} %)", flush=True)
     del caches, logits
     gc.collect()
     torch.cuda.empty_cache()
 
     tf_counts = _tf_bf16(dev, tag, model, cfg, prompts, out[0],
-                         hold=tf_layers is None)
+                         hold=tf_layers is None, stub=stub)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3561,17 +3749,19 @@ def _serve_lm(dev, tag: str, cfg, prompt: int, tf_layers=None) -> tuple:
         small = dataclasses.replace(cfg, stages=(
             Stage(pattern, tf_layers // len(pattern)),))
         model = cast_to_compute(init_params(small, gen, dev), small.dtype)
-        _tf_bf16(dev, tag, model, small, prompts, out[0], hold=True)
+        _tf_bf16(dev, tag, model, small, prompts, out[0], hold=True,
+                 stub=stub)
         del model
         gc.collect()
         torch.cuda.empty_cache()
     return prefill_counts, decode_counts, tf_counts, attn.calls
 
 
-def _tf_f32(dev, tag: str, cfg, seq: int) -> dict:
+def _tf_f32(dev, tag: str, cfg, seq: int, stub=None) -> dict:
     """Float32 teacher forcing, 2e-4 of max|ref|: the decode logits at
     ``seq`` against the train pass over seq + 1 tokens, and the prefill's
-    against the train pass over the same ``seq`` tokens.  The prefill
+    against the train pass over the same ``seq`` tokens, each after
+    ``stub`` (frames to encode, or prefix embeddings) when given.  The prefill
     against the first ``seq`` positions of the longer pass is printed as
     a reading, with its worst positions: the two passes' GEMMs differ in
     shape, so their rounding differs, and RWKV-6's per-head RMS norm
@@ -3586,16 +3776,19 @@ def _tf_f32(dev, tag: str, cfg, seq: int) -> dict:
                         dev)
     tokens = torch.as_tensor(synth_tokens(SEED, 1, BATCH, seq + 1, cfg.vocab),
                              device=dev)
+    _, prefix, enc_len = _frontend(cfg, stub)
     reset_launch_counts()
-    ref, _ = forward(model, cfg, tokens, mode="train", kv_block=KV_BLOCK)
+    kw = _forward_inputs(model, cfg, stub)
+    ref, _ = forward(model, cfg, tokens, mode="train", kv_block=KV_BLOCK,
+                     **kw)
     ref_seq, _ = forward(model, cfg, tokens[:, :seq], mode="train",
-                         kv_block=KV_BLOCK)
-    caches = init_caches(cfg, BATCH, seq + 1, dtype=torch.float32,
-                         device=dev)
+                         kv_block=KV_BLOCK, **kw)
+    caches = init_caches(cfg, BATCH, prefix + seq + 1, enc_len=enc_len,
+                         dtype=torch.float32, device=dev)
     pre, caches = forward(model, cfg, tokens[:, :seq], mode="prefill",
-                          caches=caches, kv_block=KV_BLOCK)
+                          caches=caches, kv_block=KV_BLOCK, **kw)
     dec, _ = forward(model, cfg, tokens[:, seq:], mode="decode",
-                     caches=caches, start=seq, kv_block=KV_BLOCK)
+                     caches=caches, start=prefix + seq, kv_block=KV_BLOCK)
     counts = launch_counts()
     top = ref.abs().max().item()
     err = (dec[:, 0] - ref[:, seq]).abs().max().item()
@@ -3603,7 +3796,8 @@ def _tf_f32(dev, tag: str, cfg, seq: int) -> dict:
     by_pos = (pre - ref[:, :seq]).abs().amax(dim=(0, 2))
     worst = by_pos.topk(3)
     worst_errs = [f"{v:.2e}" for v in worst.values.tolist()]
-    print(f"[{tag}] teacher forcing f32, {cfg.n_layers} layers, S={seq}: "
+    print(f"[{tag}] teacher forcing f32, {cfg.n_layers} layers, S={seq} "
+          f"after {prefix} prefix positions: "
           f"decode vs train max_abs_err {err:.3e}, prefill vs train over "
           f"the same tokens {err_pre:.3e}, tol {TF_TOL * top:.3e}; "
           f"reading: prefill vs the {seq + 1}-token train pass "
@@ -3615,7 +3809,7 @@ def _tf_f32(dev, tag: str, cfg, seq: int) -> dict:
           f"err {err}")
     check(err_pre <= TF_TOL * top, f"phase {tag}: f32 teacher forcing "
           f"prefill err {err_pre}")
-    del model, caches, ref, ref_seq, pre, dec
+    del model, caches, ref, ref_seq, pre, dec, kw
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -3784,6 +3978,78 @@ def scan_check(rank: int, mesh, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the encoder, cross-attention and prefix-LM serving
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-base"  # src/repro/configs/whisper_base.py
+PALI = "paligemma-3b"     # src/repro/configs/paligemma_3b.py
+P12_BATCH = 8             # a batched server's requests
+# whisper's longest previous-text prompt, half its 448-token text context
+# (224 + GEN stays inside it)
+WHISPER_PROMPT = 224
+# (B, frames, heads, kv heads, head_dim) of whisper's encoder attention
+WHISPER_ATTN = (P12_BATCH, 1500, 8, 8, 64)
+PALI_PROMPT = 256         # the text part after paligemma's 256 patches
+PALI_TF_LAYERS = 2        # depth of paligemma's float32 teacher forcing
+PALI_TF_SEQ = 512         # its tokens after the 256 patches
+CROSS_TOL = 1e-5          # the cross cache vs gqa_project_kv (x max|ref|)
+
+
+def phase_frontends(dev) -> dict:
+    """12a whisper-base (6 + 6 layers) and 12b paligemma-3b (18 layers)
+    at full width and depth, bf16, seeded weights, P12_BATCH requests of
+    seeded stub frames or patches on the card and a ``synth_tokens``
+    prompt, GEN greedy tokens (``_serve_lm``); then float32 teacher
+    forcing, whisper at full depth (S 224) and paligemma at 2 layers (256
+    patches + 512 tokens).  whisper's prefill launches ``flash_attention``
+    once a self-attention layer (the encoder's non-causal, the decoder's
+    causal), all ``wgmma``; its decode and every paligemma pass (prefix-LM
+    and head_dim 256) launch none.  Returns the served runs' launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    t_phase = time.time()
+    counts = Counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    t0 = time.time()
+    cfg = _cut(WHISPER)
+    frames = torch.randn(P12_BATCH, cfg.n_frontend_tokens, cfg.d_model,
+                         device=dev, generator=gen)
+    pre, dec, tf, calls = _serve_lm(dev, "12a", cfg, WHISPER_PROMPT,
+                                    batch=P12_BATCH, stub=frames)
+    n_attn = cfg.encoder.n_layers + cfg.n_layers
+    check(calls == n_attn and pre.get(fa.NAME) == n_attn
+          and pre.get(fa.TC) == n_attn,
+          f"phase 12a: prefill flash_attention launches {calls} {pre}, "
+          f"{n_attn} expected on wgmma")
+    check(not dec.get(fa.NAME), f"phase 12a: decode launches {dec}")
+    check(tf.get(fa.NAME) == 2 * n_attn and tf.get(fa.TC) == 2 * n_attn,
+          f"phase 12a: teacher-forcing launches {tf}")
+    counts.update(pre)
+    counts.update(dec)
+    _tf_f32(dev, "12a", _cut(WHISPER, dtype="float32"), WHISPER_PROMPT,
+            stub=frames[:BATCH])
+    print(f"[12a] {WHISPER}: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    cfg = _cut(PALI)
+    patches = torch.randn(P12_BATCH, cfg.n_frontend_tokens, cfg.d_model,
+                          device=dev, generator=gen)
+    pre, dec, tf, calls = _serve_lm(dev, "12b", cfg, PALI_PROMPT,
+                                    batch=P12_BATCH, stub=patches)
+    check(not calls and not pre.get(fa.NAME) and not dec.get(fa.NAME)
+          and not tf.get(fa.NAME),
+          f"phase 12b: flash_attention launched {calls} {pre} {dec} {tf}")
+    counts.update(pre)
+    counts.update(dec)
+    _tf_f32(dev, "12b", _cut(PALI, PALI_TF_LAYERS, "float32"), PALI_TF_SEQ,
+            stub=patches[:BATCH])
+    print(f"[12b] {PALI}: {time.time() - t0:.1f} s", flush=True)
+    print(f"[12] phase 12 {time.time() - t_phase:.1f} s", flush=True)
+    return dict(counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3810,7 +4076,7 @@ def main() -> int:
     trace_counts, trace_results = phase_trace()
     moe_counts, scan_results = phase_moe(dev)
     paths += [trace_counts, phase_fnet(dev, trace_results), moe_counts,
-              phase_lm_archs(dev, scan_results)]
+              phase_lm_archs(dev, scan_results), phase_frontends(dev)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {

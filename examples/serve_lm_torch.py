@@ -18,10 +18,10 @@ Each user's served output is checked against the direct
 ``spectral_mixer`` call on the same device; the script prints "OK" when
 every one is within 1e-2 of the output's scale.
 
-The prefill/decode loop of the decoder models (h2o-danube-3-4b,
-deepseek-v2-236b, mixtral-8x22b) lives on in ``python -m
-repro_torch.launch.serve --arch deepseek-v2-236b --smoke`` (on the card;
-``--device cpu`` off it).
+The prefill/decode loop of the LM archs (the decoder models, whisper-base
+with its encoder and paligemma-3b with its image prefix) lives on in
+``python -m repro_torch.launch.serve --arch whisper-base --smoke`` (on the
+card; ``--device cpu`` off it).
 """
 
 import argparse

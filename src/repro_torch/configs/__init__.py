@@ -1,11 +1,9 @@
 """Config registry: ``get_config("<arch>")`` / ``--arch`` lookup.
 
-Port of ``repro/configs/__init__.py``.  The registry knows every arch of
-the reference; the port runs the dense GQA models, the MoE models (MLA
-and GQA attention), the recurrent models (RG-LRU with local attention,
-RWKV-6) and the FNet spectral encoder.  The encoder-decoder and the
-vision-prefix models (whisper-base, paligemma-3b) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Port of ``repro/configs/__init__.py``: the ten assigned architectures
+and the bonus spectral LM, each module a copy of the reference's with
+``full()`` and ``smoke()``; the paper's FFT workloads live in
+``croft_fft.py`` and ``shapes.py``.
 """
 
 from __future__ import annotations
@@ -22,10 +20,10 @@ ARCHS = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "yi-34b": "repro_torch.configs.yi_34b",
     "yi-9b": "repro_torch.configs.yi_9b",
-    "whisper-base": None,
+    "whisper-base": "repro_torch.configs.whisper_base",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
-    "paligemma-3b": None,
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
     # bonus (beyond the assigned pool)
     "fnet-350m": "repro_torch.configs.fnet_350m",
 }
@@ -36,10 +34,6 @@ ASSIGNED = [a for a in ARCHS if a != "fnet-350m"]
 def get_config(arch: str, smoke: bool = False):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    if ARCHS[arch] is None:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md queue 1 item 8c: the "
-            "encoder and the modality frontends)")
     mod = importlib.import_module(ARCHS[arch])
     return mod.smoke() if smoke else mod.full()
 

@@ -20,7 +20,9 @@ gloo: ranks that share a card, and on the CPU).
 
 Weights are drawn from ``--seed`` on the device and cast once to the
 config's compute dtype; prompts come from the reference's
-``synth_tokens``, so both packages serve the same tokens.
+``synth_tokens``, and whisper's stub frames and paligemma's stub patch
+embeddings from ``numpy.random.default_rng(seed)``, as in the reference,
+so both packages serve the same inputs.
 """
 
 from __future__ import annotations
@@ -163,26 +165,36 @@ def lm_main(args) -> np.ndarray:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = cast_to_compute(init_params(cfg, gen, dev), cfg.dtype)
 
-    max_len = args.prompt_len + args.gen_len
+    prefix = cfg.n_frontend_tokens if cfg.prefix_lm else 0
+    max_len = prefix + args.prompt_len + args.gen_len
     prefill_fn, decode_fn = make_serve_steps(cfg, args.batch, max_len,
                                              kv_block=args.kv_block,
                                              device=dev)
     prompts = synth_tokens(args.seed, 0, args.batch, args.prompt_len,
                            cfg.vocab)
-    caches = init_caches(cfg, args.batch, max_len,
+    enc_len = cfg.n_frontend_tokens if cfg.encoder is not None else 0
+    caches = init_caches(cfg, args.batch, max_len, enc_len=enc_len,
                          dtype=getattr(torch, cfg.dtype), device=dev)
+    kwargs = {}
+    rng = np.random.default_rng(args.seed)
+    stub = (args.batch, cfg.n_frontend_tokens, cfg.d_model)
+    if cfg.encoder is not None:
+        kwargs["frames"] = rng.standard_normal(stub, np.float32)
+    elif cfg.frontend == "vision":
+        kwargs["prefix_embeds"] = rng.standard_normal(stub, np.float32)
     sampler = torch.Generator(device=dev).manual_seed(args.seed)
 
     _sync(dev)
     t0 = time.monotonic()
-    logits, caches = prefill_fn(model, prompts, caches)
+    logits, caches = prefill_fn(model, prompts, caches, **kwargs)
     _sync(dev)
     t_prefill = time.monotonic() - t0
     tok = temperature_sample(sampler, logits, args.temperature)[:, None]
     out = [tok]
     t0 = time.monotonic()
     for i in range(args.gen_len - 1):
-        logits, caches = decode_fn(model, tok, caches, args.prompt_len + i)
+        logits, caches = decode_fn(model, tok, caches,
+                                   prefix + args.prompt_len + i)
         tok = temperature_sample(sampler, logits, args.temperature)[:, None]
         out.append(tok)
     _sync(dev)

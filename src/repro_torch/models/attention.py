@@ -1,27 +1,26 @@
 """Attention family: GQA/MQA, sliding-window, prefix-LM masks and
 DeepSeek-style MLA over one blockwise online-softmax core.
 
-Port of ``repro/models/attention.py`` (self-attention; cross-attention
-waits for the encoder-decoder slice).  Masks are evaluated from explicit global
-position vectors, so full caches, ring (sliding-window) caches and offset
-decode queries share one code path: empty cache slots carry position -1
-and mask themselves out.  ``NEG_INF`` is finite so fully masked rows stay
-NaN-free.
+Port of ``repro/models/attention.py``.  Masks are evaluated from
+explicit global position vectors, so full caches, ring (sliding-window)
+caches and offset decode queries share one code path: empty cache slots
+carry position -1 and mask themselves out.  ``NEG_INF`` is finite so
+fully masked rows stay NaN-free.
 
 Self-attention over a whole segment that starts at position 0 (train and
-prefill passes, no prefix-LM span) is exactly the function of the
-hand-written flash-attention kernel
+prefill passes, the encoder's non-causal layers, no prefix-LM span) is
+exactly the function of the hand-written flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), and
 :func:`gqa_fwd` sends that case there when its head dims are within the
-kernel's ``D_MAX``; every other call (decode over the cache, a segment at
-an offset, prefix-LM, head_dim 256 as in gemma3 and recurrentgemma) runs
-:func:`blockwise_attention` in plain torch, as the reference does.  The
-route depends on the shapes alone, so the CPU takes the route the card
-takes.  MLA always runs the blockwise
-core, as the reference does: its head dims (576/512 absorbed, 192/128
-decompressed) are past the kernel's ``D_MAX``.  The sharding hints of the
-reference (``kv_spec``, ``kv_local_spec``) have no counterpart: the port
-is meshless.
+kernel's ``D_MAX``; every other call (decode over the cache,
+cross-attention over an encoder memory, a segment at an offset,
+prefix-LM, head_dim 256 as in gemma3, recurrentgemma and paligemma)
+runs :func:`blockwise_attention` in plain torch, as the reference does.
+The route depends on the shapes alone, so the CPU takes the route the
+card takes.  MLA always runs the blockwise core, as the reference does:
+its head dims (576/512 absorbed, 192/128 decompressed) are past the
+kernel's ``D_MAX``.  The sharding hints of the reference (``kv_spec``,
+``kv_local_spec``) have no counterpart: the port is meshless.
 """
 
 from __future__ import annotations

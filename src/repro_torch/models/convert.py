@@ -3,7 +3,9 @@
 The reference (``repro/models/model.py:init_params``) keeps each stage's
 layers stacked on a leading repeat axis under ``stages[si]["p{pi}"]``;
 :func:`params_from_numpy` unstacks them into ``Model.stages[si]``, layer
-``t * len(pattern) + pi`` taking index ``t``.  Values stay float32 (the
+``t * len(pattern) + pi`` taking index ``t``; an encoder-decoder's
+``encoder.layers``, stacked on a leading ``n_layers`` axis, go to
+``Model.encoder.layers[t]`` the same way.  Values stay float32 (the
 masters).  The tree's leaves are numpy arrays (``jax.tree.map(np.asarray,
 params)`` on the reference side), so this module needs no JAX.
 """
@@ -60,6 +62,17 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
         n = len(stage.pattern)
         for pi in range(n):
             for t in range(stage.repeat):
-                load_tree(model.stages[si][t * n + pi], tree["stages"][si][f"p{pi}"],
-                      f"stages[{si}].p{pi}[{t}]", index=t)
+                load_tree(model.stages[si][t * n + pi],
+                          tree["stages"][si][f"p{pi}"],
+                          f"stages[{si}].p{pi}[{t}]", index=t)
+    if ("encoder" in tree) != (cfg.encoder is not None):
+        raise ValueError(f"encoder: in the tree {'encoder' in tree}, in "
+                         f"the config {cfg.encoder is not None}")
+    if cfg.encoder is not None:
+        enc = tree["encoder"]
+        for t in range(cfg.encoder.n_layers):
+            load_tree(model.encoder.layers[t], enc["layers"],
+                      f"encoder.layers[{t}]", index=t)
+        load_tree(model.encoder.final_norm, enc["final_norm"],
+                  "encoder.final_norm")
     return model

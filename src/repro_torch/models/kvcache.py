@@ -1,14 +1,15 @@
-"""Cache structures: full, ring (sliding-window) and MLA-latent
-attention caches, and the recurrent state.
+"""Cache structures: full, ring (sliding-window), MLA-latent and
+cross-attention caches, and the recurrent state.
 
-Port of ``repro/models/kvcache.py`` (the cross-attention cache waits for
-the encoder-decoder slice, ``ROADMAP.md`` queue 1 item 8c).  Every
-attention cache carries an explicit per-slot global-position vector
-``pos`` (-1 = empty); attention masks are evaluated from it, so full and
-ring caches share the attention code path.  ``pos`` is batch-agnostic
-(the serve loop decodes in lock-step).  The recurrent cache holds the
-mixer's state and the token-shift inputs; ``models/model.py`` writes
-them in place, as the attention writes below do.
+Port of ``repro/models/kvcache.py``.  Every attention cache carries an
+explicit per-slot global-position vector ``pos`` (-1 = empty); attention
+masks are evaluated from it, so full and ring caches share the attention
+code path.  ``pos`` is batch-agnostic (the serve loop decodes in
+lock-step).  The recurrent cache holds the mixer's state and the
+token-shift inputs; ``models/model.py`` writes them in place, as the
+attention writes below do.  The cross-attention cache holds the encoder
+memory's projected k/v (B, enc_len, KV, hd) with ``pos =
+arange(enc_len)``; the prefill writes it in place, decode reads it.
 
 The reference returns new arrays; :func:`write_attn_cache` and
 :func:`write_latent_cache` write into the cache's tensors in place (the
@@ -21,8 +22,6 @@ import torch
 
 from repro_torch.models.config import (AttentionSpec, LayerSpec,
                                        RecurrentSpec)
-
-LM_ITEM = "ROADMAP.md queue 1 item 8"
 
 
 def init_attn_cache(spec: AttentionSpec, batch: int, max_len: int, dtype,
@@ -63,22 +62,32 @@ def init_recurrent_cache(spec: RecurrentSpec, d_model: int, batch: int,
 
 
 def init_layer_cache(spec: LayerSpec, batch: int, max_len: int, dtype,
-                     device=None, d_model=None) -> dict:
+                     device=None, d_model=None, enc_len: int = 0) -> dict:
     """One layer's cache: ``self`` for attention, ``rec`` for a recurrent
     mixer (which needs ``d_model``; it also holds the RWKV channel mix's
-    ``x_prev_ffn``); the FNet mixer keeps none."""
-    if spec.cross_attn:
-        raise NotImplementedError(f"cross-attention cache: {LM_ITEM}c "
-                                  "(encoder-decoder)")
+    ``x_prev_ffn``), and ``cross`` for a decoder layer that attends to an
+    encoder memory of ``enc_len`` frames; the FNet mixer keeps none."""
+    cache = {}
     if spec.mixer == "attn":
-        return {"self": init_attn_cache(spec.attn, batch, max_len, dtype,
-                                        device)}
-    if spec.mixer in ("rglru", "rwkv6"):
+        cache["self"] = init_attn_cache(spec.attn, batch, max_len, dtype,
+                                        device)
+    elif spec.mixer in ("rglru", "rwkv6"):
         if d_model is None:
             raise ValueError(f"a {spec.mixer} layer cache needs d_model")
-        return {"rec": init_recurrent_cache(spec.recurrent, d_model, batch,
-                                            dtype, device)}
-    return {}
+        cache["rec"] = init_recurrent_cache(spec.recurrent, d_model, batch,
+                                            dtype, device)
+    if spec.cross_attn:
+        if enc_len <= 0:
+            raise ValueError("a cross-attention layer cache needs enc_len, "
+                             "the encoder memory's length")
+        a = spec.attn
+        shape = (batch, enc_len, a.n_kv_heads, a.head_dim)
+        cache["cross"] = {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.arange(enc_len, dtype=torch.int32, device=device),
+        }
+    return cache
 
 
 def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,

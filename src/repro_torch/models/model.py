@@ -2,8 +2,11 @@
 
 Port of ``repro/models/model.py`` for attention stacks (GQA and MLA)
 with dense or MoE FFNs (``models/moe.py``), the parameter-free spectral
-(FNet) mixer (``models/spectral.py``) and the linear-recurrence mixers
-(RG-LRU and RWKV-6 with its channel mix, ``models/recurrent.py``).  The
+(FNet) mixer (``models/spectral.py``), the linear-recurrence mixers
+(RG-LRU and RWKV-6 with its channel mix, ``models/recurrent.py``), the
+encoder stack with decoder cross-attention (whisper: :func:`encode`, then
+``forward(enc_out=)``) and prefix embeddings with prefix-LM attention
+(paligemma: ``forward(prefix_embeds=)``).  The
 reference scans each stage's ``repeat`` groups over parameters stacked on
 a leading repeat axis; here a stage is an ``nn.ModuleList`` of its layers,
 group by group (layer ``t * len(pattern) + pi`` is pattern entry ``pi`` of
@@ -19,15 +22,17 @@ Three modes share one layer implementation:
   decode   single token against the caches (serving steady state)
 
 Every cache is written in place (``copy_`` into the tensors that
-:func:`init_caches` made), so ``forward`` returns the caches it was
-given.  Cross-attention, encoder and prefix-embed paths (``ROADMAP.md``
-queue 1 item 8c) and the sharded context (``ShardCtx``, item 8e, which
-would route MoE layers through ``models/moe_sharded.py`` and recurrent
-layers through ``parallel/seqscan.py``) raise ``NotImplementedError``.
+:func:`init_caches` made; the prefill writes the encoder memory's k/v
+into the cross-attention cache the same way), so ``forward`` returns the
+caches it was given.  The sharded context (``ShardCtx``, ``ROADMAP.md``
+queue 1 item 8e, which would route MoE layers through
+``models/moe_sharded.py`` and recurrent layers through
+``parallel/seqscan.py``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -40,9 +45,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.attention import MaskSpec
-from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.config import AttentionSpec, LayerSpec, ModelConfig
 
 LM_ITEM = "ROADMAP.md queue 1 item 8"
+CROSS_ATTN_SPEC_OVERRIDES = dict(use_rope=False, causal=False, window=None)
 
 
 class Ctx(NamedTuple):
@@ -53,6 +59,11 @@ class Ctx(NamedTuple):
     prefix_len: int                # prefix-LM bidirectional span
     kv_block: int
     scan_chunk: Optional[int] = None   # recurrent chunk override
+    enc_out: Optional[torch.Tensor] = None  # cross-attention source
+
+
+def _cross_spec(a: AttentionSpec) -> AttentionSpec:
+    return dataclasses.replace(a, **CROSS_ATTN_SPEC_OVERRIDES)
 
 
 # --------------------------------------------------------------------------
@@ -61,14 +72,14 @@ class Ctx(NamedTuple):
 
 class Layer(nn.Module):
     """One layer: ``ln1``, the token mixer (GQA, MLA, RG-LRU or RWKV-6),
-    ``ln2``, the channel mixer (a dense FFN, the RWKV channel mix or
-    MoE).  The spectral mixer has no parameters (``mixer`` is None)."""
+    for a decoder layer of an encoder-decoder ``ln_cross`` and ``cross``
+    (GQA over the encoder memory), ``ln2``, the channel mixer (a dense
+    FFN, the RWKV channel mix or MoE).  The spectral mixer has no
+    parameters (``mixer`` is None)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, generator=None,
                  device=None):
         super().__init__()
-        if spec.cross_attn:
-            raise NotImplementedError(f"cross-attention: {LM_ITEM}c")
         d = cfg.d_model
         self.ln1 = L.init_norm(cfg.norm, d, device)
         self.ln2 = L.init_norm(cfg.norm, d, device)
@@ -85,6 +96,10 @@ class Layer(nn.Module):
                                                  device)
         else:
             raise ValueError(spec.mixer)
+        if spec.cross_attn:
+            self.ln_cross = L.init_norm(cfg.norm, d, device)
+            self.cross = attn_lib.init_attention(d, _cross_spec(spec.attn),
+                                                 generator, device)
         self.ffn = (moe_lib.init_moe(d, spec.moe, generator, device)
                     if spec.ffn == "moe" else
                     L.init_ffn(d, cfg.d_ff, spec.ffn, generator, device))
@@ -125,6 +140,40 @@ def _self_attention(p: Layer, h, spec: LayerSpec, cfg: ModelConfig,
     return y, cache
 
 
+def _cross_attention(p: Layer, h, spec: LayerSpec, cfg: ModelConfig,
+                     ctx: Ctx, cache):
+    """Attention over the encoder memory: in train and prefill its k/v
+    are projected from ``ctx.enc_out`` (the prefill writes them into the
+    cross cache in place), in decode they are read from the cache.  Never
+    on the flash-attention kernel: the keys come as ``kv``."""
+    a = _cross_spec(spec.attn)
+    ms = MaskSpec(causal=False)
+    if ctx.mode == "decode":
+        c = cache["cross"]
+        y, _ = attn_lib.attention_fwd(p.cross, h, a, ms, ctx.q_pos,
+                                      kv=(c["k"], c["v"]), k_pos=c["pos"],
+                                      kv_block=ctx.kv_block)
+        return y, cache
+    if ctx.enc_out is None:
+        raise ValueError(f"cross-attention in {ctx.mode} mode needs enc_out "
+                         "(the output of encode)")
+    enc = ctx.enc_out.to(h.dtype)
+    enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=h.device)
+    k_enc, v_enc = attn_lib.gqa_project_kv(p.cross, enc, a, enc_pos)
+    y, _ = attn_lib.attention_fwd(p.cross, h, a, ms, ctx.q_pos,
+                                  kv=(k_enc, v_enc), k_pos=enc_pos,
+                                  kv_block=ctx.kv_block)
+    if ctx.mode == "prefill":
+        c = cache["cross"]
+        if c["k"].shape != k_enc.shape:
+            raise ValueError(f"the cross cache holds {tuple(c['k'].shape)}, "
+                             f"the encoder memory projects to "
+                             f"{tuple(k_enc.shape)} (init_caches' enc_len)")
+        c["k"].copy_(k_enc)
+        c["v"].copy_(v_enc)
+    return y, cache
+
+
 def _recurrent(p: Layer, h, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
                cache):
     """The RG-LRU or RWKV-6 mixer; outside train mode it starts from the
@@ -162,6 +211,10 @@ def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
     else:
         y, cache = _recurrent(p, h, spec, cfg, ctx, cache)
     x = x + y
+    if spec.cross_attn:
+        hc = L.norm_fwd(p.ln_cross, x, cfg.norm, cfg.norm_eps)
+        y, cache = _cross_attention(p, hc, spec, cfg, ctx, cache)
+        x = x + y
     h2 = L.norm_fwd(p.ln2, x, cfg.norm, cfg.norm_eps)
     if spec.ffn == "moe":
         return x + moe_lib.moe_fwd(p.ffn, h2, spec.moe), cache
@@ -179,18 +232,31 @@ def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
 # whole-model init
 # --------------------------------------------------------------------------
 
+class Encoder(nn.Module):
+    """The encoder stack of an encoder-decoder (whisper): ``layers``, an
+    ``nn.ModuleList`` of ``n_layers`` encoder layers, and ``final_norm``.
+    Like the reference's, it holds no positional table (the config's
+    ``param_count`` counts one)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        e = cfg.encoder
+        self.layers = nn.ModuleList(Layer(cfg, e.layer, generator, device)
+                                    for _ in range(e.n_layers))
+        self.final_norm = L.init_norm(cfg.norm, cfg.d_model, device)
+
+
 class Model(nn.Module):
-    """The embedding, the stages (``nn.ModuleList`` of layers each) and the
-    final norm; parameters are fp32 masters drawn from ``generator`` on
-    ``device`` (default: the current CUDA card; ``"cpu"`` or ``"meta"``
-    when asked)."""
+    """The embedding, the stages (``nn.ModuleList`` of layers each), the
+    final norm and, for an encoder-decoder, ``encoder``; parameters are
+    fp32 masters drawn from ``generator`` on ``device`` (default: the
+    current CUDA card; ``"cpu"`` or ``"meta"`` when asked).  The modality
+    frontends are stubs, as in the reference: frames and patch embeddings
+    come in as (B, n_frontend_tokens, d_model) arrays."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.encoder is not None or cfg.frontend != "none":
-            raise NotImplementedError(f"encoder / modality frontend: "
-                                      f"{LM_ITEM}c")
         self.embed = L.init_embedding(cfg.vocab, cfg.d_model,
                                       cfg.tie_embeddings, generator, device)
         self.stages = nn.ModuleList(
@@ -199,6 +265,8 @@ class Model(nn.Module):
                           for spec in stage.pattern)
             for stage in cfg.stages)
         self.final_norm = L.init_norm(cfg.norm, cfg.d_model, device)
+        if cfg.encoder is not None:
+            self.encoder = Encoder(cfg, generator, device)
 
 
 def init_params(cfg: ModelConfig, generator=None, device=None) -> Model:
@@ -206,12 +274,13 @@ def init_params(cfg: ModelConfig, generator=None, device=None) -> Model:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device=None) -> list:
+                enc_len: int = 0, dtype=torch.bfloat16, device=None) -> list:
     """Per-layer caches mirroring ``Model.stages``: ``caches[si][li]``, on
-    ``device`` (default: the current CUDA card)."""
+    ``device`` (default: the current CUDA card).  ``enc_len``: the encoder
+    memory's length, for the cross-attention caches."""
     device = resolve_device(device)
     return [[kc.init_layer_cache(spec, batch, max_len, dtype, device,
-                                 d_model=cfg.d_model)
+                                 d_model=cfg.d_model, enc_len=enc_len)
              for _ in range(stage.repeat) for spec in stage.pattern]
             for stage in cfg.stages]
 
@@ -221,6 +290,25 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 # --------------------------------------------------------------------------
 
 @torch.no_grad()
+def encode(model: Model, cfg: ModelConfig, frames: torch.Tensor,
+           kv_block: int = 1024) -> torch.Tensor:
+    """Encoder stack (whisper): stub frame embeddings (B, T, d_model) ->
+    memory (B, T, d_model) in the compute dtype.  Its self-attention is a
+    non-causal segment at position 0 (``start`` the int 0), the
+    flash-attention kernel's case."""
+    e = cfg.encoder
+    if e is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    x = frames.to(getattr(torch, cfg.dtype))
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    ctx = Ctx(mode="train", q_pos=pos, start=0, prefix_len=0,
+              kv_block=kv_block)
+    for layer in model.encoder.layers:
+        x, _ = layer_fwd(layer, x, e.layer, cfg, ctx, None)
+    return L.norm_fwd(model.encoder.final_norm, x, cfg.norm, cfg.norm_eps)
+
+
+@torch.no_grad()
 def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str = "train", caches=None, start: int = 0,
             prefix_embeds: Optional[torch.Tensor] = None,
@@ -228,28 +316,37 @@ def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
             scan_chunk: Optional[int] = None, shard: Any = None):
     """Token ids (B, S) -> (logits (B, S, vocab), caches).
 
-    ``start``: global position of tokens[0] (the decode step index), a
-    Python int.  Prefill and decode write ``caches`` in place and return
-    them; caches is None in train mode.  ``scan_chunk`` overrides the
-    recurrent layers' chunk.
+    ``prefix_embeds`` (B, P, D): modality-stub embeddings (paligemma's
+    patches) put ahead of the token embeddings; a prefix-LM config attends
+    bidirectionally over them, and the logits cover only the token
+    positions.  ``enc_out`` (B, T, D): the encoder memory (:func:`encode`)
+    that the cross-attention layers attend to in train and prefill mode.
+    ``start``: global position of the first position (the decode step
+    index, prefix included), a Python int.  Prefill and decode write
+    ``caches`` in place and return them; caches is None in train mode.
+    ``scan_chunk`` overrides the recurrent layers' chunk.
     """
     if shard is not None:
         raise NotImplementedError(f"sharded forward (ShardCtx): {LM_ITEM}e")
-    if prefix_embeds is not None or enc_out is not None:
-        raise NotImplementedError(f"prefix embeddings / encoder memory: "
-                                  f"{LM_ITEM}c")
     if mode != "train" and caches is None:
         raise ValueError(f"mode {mode!r} needs caches")
     dtype = getattr(torch, cfg.dtype)
     x = L.embed_fwd(model.embed, tokens, dtype, cfg.emb_scale_by_dim)
+    n_prefix = 0
+    if prefix_embeds is not None:
+        n_prefix = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     q_pos = start + torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-    ctx = Ctx(mode=mode, q_pos=q_pos, start=start, prefix_len=0,
-              kv_block=kv_block, scan_chunk=scan_chunk)
+    ctx = Ctx(mode=mode, q_pos=q_pos, start=start,
+              prefix_len=n_prefix if cfg.prefix_lm else 0,
+              kv_block=kv_block, scan_chunk=scan_chunk, enc_out=enc_out)
     for si, stage in enumerate(cfg.stages):
         for li, layer in enumerate(model.stages[si]):
             cache = caches[si][li] if caches is not None else None
             x, _ = layer_fwd(layer, x, stage.pattern[li % len(stage.pattern)],
                              cfg, ctx, cache)
     x = L.norm_fwd(model.final_norm, x, cfg.norm, cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
     return L.logits_fwd(model.embed, x, cfg.logit_softcap), caches

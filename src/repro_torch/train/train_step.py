@@ -37,11 +37,15 @@ def make_serve_steps(cfg: ModelConfig, batch: int, max_len: int,
                      kv_block: int = 1024, device=None):
     """(prefill_fn, decode_fn) on ``device`` (default: the CUDA card).
 
-    prefill(model, tokens, caches)  -> (last_logits (B, vocab), caches)
+    prefill(model, tokens, caches, prefix_embeds=None, frames=None)
+                                    -> (last_logits (B, vocab), caches)
     decode(model, token, caches, t) -> (logits (B, vocab), caches)
 
-    ``t`` is the global position of ``token`` (a Python int); both write
-    ``caches`` in place.
+    An encoder-decoder's prefill runs :func:`encode` over ``frames`` (B,
+    T, d_model) and writes the cross caches; ``prefix_embeds`` (B, P,
+    d_model) go ahead of the prompt.  ``t`` is the global position of
+    ``token`` (a Python int, the prefix included); both write ``caches``
+    in place.
     """
     dev = resolve_device(device)
 
@@ -52,13 +56,32 @@ def make_serve_steps(cfg: ModelConfig, batch: int, max_len: int,
                              f"{tuple(tokens.shape)}")
         return tokens
 
-    def prefill(model, tokens, caches):
+    def _embeds(x, what: str) -> torch.Tensor:
+        x = torch.as_tensor(x, device=dev)
+        if x.ndim != 3 or x.shape[0] != batch or x.shape[2] != cfg.d_model:
+            raise ValueError(f"{what}: expected ({batch}, T, {cfg.d_model}), "
+                             f"got {tuple(x.shape)}")
+        return x
+
+    def prefill(model, tokens, caches, prefix_embeds=None, frames=None):
         tokens = _tokens(tokens, "prefill")
-        if tokens.shape[1] > max_len:
-            raise ValueError(f"a {tokens.shape[1]}-token prompt exceeds "
-                             f"max_len {max_len}")
+        kwargs = {}
+        if cfg.encoder is not None:
+            if frames is None:
+                raise ValueError(f"{cfg.name} prefill needs frames")
+            kwargs["enc_out"] = model_lib.encode(
+                model, cfg, _embeds(frames, "frames"), kv_block)
+        n_prefix = 0
+        if prefix_embeds is not None:
+            kwargs["prefix_embeds"] = _embeds(prefix_embeds, "prefix_embeds")
+            n_prefix = prefix_embeds.shape[1]
+        if tokens.shape[1] + n_prefix > max_len:
+            raise ValueError(f"a {tokens.shape[1]}-token prompt after "
+                             f"{n_prefix} prefix positions exceeds max_len "
+                             f"{max_len}")
         logits, caches = model_lib.forward(model, cfg, tokens, mode="prefill",
-                                           caches=caches, kv_block=kv_block)
+                                           caches=caches, kv_block=kv_block,
+                                           **kwargs)
         return logits[:, -1], caches
 
     def decode(model, token, caches, t: int):

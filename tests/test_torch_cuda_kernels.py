@@ -531,6 +531,74 @@ def test_lm_serving_runs_the_kernel(cuda_device):
     assert (dec[:, 0] - ref[:, s]).abs().max().item() <= TF_TOL * top
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_whisper_encoder_shape(cuda_device, dtype):
+    """whisper-base's encoder self-attention: B 8, Sq = Skv = 1500 frames
+    (no multiple of the kernel's tiles), 8 heads over 8, head_dim 64,
+    non-causal, no window, q pre-scaled as the model passes it; bf16 on
+    the tensor-core kernel, float32 on FFMA."""
+    q, k, v = _attention_case(cuda_device, 8, 1500, 1500, 8, 8, 64, dtype,
+                              seed=1500)
+    q = (q.float() * 64 ** -0.5).to(dtype)
+    which = flash_attention.TC if dtype == torch.bfloat16 \
+        else flash_attention.FFMA
+    assert flash_attention.variant(q, k, v) == which
+    got = _launched_variant(which, lambda: flash_attention.flash_attention(
+        q, k, v, causal=False, scale=1.0))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=False,
+                                                 scale=1.0)
+    assert got.shape == (8, 1500, 8, 64) and torch.isfinite(got).all()
+    assert _attention_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", TF_TOL),
+                                       ("bfloat16", 5e-2)])
+def test_whisper_prefill_on_the_card_matches_the_cpu(cuda_device, dtype, tol):
+    """whisper-base's smoke model through ``make_serve_steps`` on the card
+    and on the CPU, the same weights and inputs: the prefill (the encoder
+    over 32 frames, the decoder over 12 tokens) launches the kernel once
+    a self-attention layer (4) and never for cross-attention, a decode
+    step never; the last logits, a decode step and the cross caches agree
+    within ``tol``·max|ref| (2e-4 float32, 5e-2 bf16)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.train import cast_to_compute, make_serve_steps
+    cfg = dataclasses.replace(get_config("whisper-base", smoke=True),
+                              dtype=dtype)
+    b, s, t = 2, 12, cfg.n_frontend_tokens
+    cpu = cast_to_compute(init_params(cfg, torch.Generator().manual_seed(0),
+                                      "cpu"), dtype)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen)
+    frames = torch.randn(b, t, cfg.d_model, generator=gen)
+    out = {}
+    for dev, model in (("cpu", cpu), (cuda_device, card)):
+        prefill, decode = make_serve_steps(cfg, b, 32, kv_block=16,
+                                           device=dev)
+        caches = init_caches(cfg, b, 32, enc_len=t,
+                             dtype=getattr(torch, dtype), device=dev)
+        before = launch_counts().get(flash_attention.NAME, 0)
+        last, caches = prefill(model, tokens[:, :s], caches, frames=frames)
+        mid = launch_counts().get(flash_attention.NAME, 0)
+        step, _ = decode(model, tokens[:, s:], caches, s)
+        after = launch_counts().get(flash_attention.NAME, 0)
+        out[str(dev)] = (last, step, caches[0][0]["cross"]["k"],
+                         mid - before, after - mid)
+    want, got = out["cpu"], out[str(cuda_device)]
+    assert want[3:] == (0, 0)
+    assert got[3:] == (cfg.encoder.n_layers + cfg.n_layers, 0)
+    for g, w in zip(got[:3], want[:3]):
+        w = w.float()
+        assert torch.isfinite(g).all()
+        assert (g.cpu().float() - w).abs().max().item() \
+            <= tol * w.abs().max().item()
+
+
 # --- the streaming kernels: rotate_blocks (16- or 8-byte vectors) and the
 # spectral scale (16-byte vectors), bitwise against their plain versions ---
 

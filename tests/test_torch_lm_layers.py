@@ -332,13 +332,29 @@ def test_write_attn_cache_refuses_a_wrapping_segment():
 
 
 def test_layer_cache_of_unported_layers_raises():
-    """The cross-attention cache waits for its slice; a recurrent layer's
-    cache (ported) refuses to be built without ``d_model``."""
+    """Every layer's cache is ported now; the ones that need a size refuse
+    to be built without it: a recurrent layer's without ``d_model``, a
+    cross-attention layer's without ``enc_len``.  Given it, the cross
+    cache is the reference's layout: ``self`` beside ``cross`` k/v (B,
+    enc_len, KV, hd) in the cache dtype and ``pos = arange(enc_len)``."""
+    from repro.models import kvcache as ref_kc
     with pytest.raises(ValueError, match="d_model"):
         kc.init_layer_cache(LayerSpec(mixer="rglru"), 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        kc.init_layer_cache(LayerSpec(attn=AttentionSpec(), cross_attn=True),
-                            1, 8, torch.float32)
+    spec = LayerSpec(attn=AttentionSpec(n_heads=4, n_kv_heads=2,
+                                        head_dim=16), cross_attn=True)
+    with pytest.raises(ValueError, match="enc_len"):
+        kc.init_layer_cache(spec, 1, 8, torch.float32)
+    got = kc.init_layer_cache(spec, 2, 8, torch.bfloat16, enc_len=5)
+    ref = ref_kc.init_layer_cache(spec, 64, 2, 8, 5, 2, jnp.bfloat16)
+    assert set(got) == set(ref) == {"self", "cross"}
+    for part in got:
+        assert set(got[part]) == set(ref[part])
+        for name, t in got[part].items():
+            assert tuple(t.shape) == ref[part][name].shape, (part, name)
+            assert str(t.dtype).split(".")[-1] == str(ref[part][name].dtype)
+    np.testing.assert_array_equal(got["cross"]["pos"].numpy(),
+                                  np.asarray(ref["cross"]["pos"]))
+    assert not got["cross"]["k"].any()
 
 
 # --------------------------------------------------------------------------
@@ -350,16 +366,10 @@ def test_registry_knows_every_reference_arch():
     assert list(ARCHS) == list(REF_ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("llama-7b")
-    ported = ("h2o-danube-3-4b", "fnet-350m", "deepseek-v2-236b",
-              "mixtral-8x22b", "gemma3-4b", "yi-9b", "yi-34b",
-              "recurrentgemma-9b", "rwkv6-3b")
-    assert set(ARCHS) - set(ported) == {"whisper-base", "paligemma-3b"}
+    # every arch is ported: each smoke and full config comes back
     for arch in ARCHS:
-        if arch in ported:
-            assert get_config(arch, smoke=True).name.startswith(arch)
-            continue
-        with pytest.raises(NotImplementedError, match="item 8"):
-            get_config(arch, smoke=True)
+        assert get_config(arch, smoke=True).name.startswith(arch)
+        assert get_config(arch).name == arch
 
 
 @pytest.mark.parametrize("smoke", [False, True])

@@ -184,8 +184,13 @@ def test_serve_cli_and_its_refusals(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main([])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
+    # the encoder-decoder serves too; an encoder-only model
+    # still has no decode step
+    gen = serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen-len", "4"])
+    assert gen.shape == (2, 4)
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve.main(["--arch", "fnet-350m", "--smoke", "--device", "cpu"])
 
 
 def test_synth_tokens_are_the_reference_tokens():
@@ -258,8 +263,13 @@ def test_serve_steps_check_their_inputs():
         forward(model, cfg, tokens, mode="prefill")
     with pytest.raises(NotImplementedError, match="ShardCtx"):
         forward(model, cfg, tokens, shard=object())
-    with pytest.raises(NotImplementedError, match="prefix embeddings"):
-        forward(model, cfg, tokens, prefix_embeds=torch.zeros(2, 1, 64))
+    # prefix embeddings are accepted; the logits cover the tokens only
+    logits, _ = forward(model, cfg, tokens,
+                        prefix_embeds=torch.zeros(2, 3, 64))
+    assert logits.shape == (2, 4, cfg.vocab)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        prefill(model, np.zeros((2, 6), np.int32), caches,
+                prefix_embeds=np.zeros((2, 3, 64), np.float32))
 
 
 def test_params_from_numpy_checks_the_tree():
