@@ -220,14 +220,41 @@ into ``build/``, then runs:
    teacher forcing, float32 teacher forcing at 2 layers over 256 + 512
    positions; wall, device time by kernel of the prefill and of one
    decode step, peak memory for both;
-13. one JSON line on the kernels, the card's name and power limit, and
+13. training: (13a) the learned spectral filter at croft-1024 (packed
+   r2c ``Croft3D``, ``local_impl="pallas"``, meshless): the target from
+   seeded true params, step 0's loss and gate and filter gradients
+   against the same loss through ``torch.fft.rfftn`` autograd (1e-4 *
+   max|ref|), then 5 SGD steps at 0.05 from the identity init, each
+   profiled (wall, device busy time, device ops, launches), the loss
+   falling and ``fft4step``, ``unpack_two_for_one`` and
+   ``spectral_scale_full`` launched in every step, and the peak; (13b)
+   h2o-danube-3-4b at full width and depth (24 layers, 3.96e9
+   parameters), fp32 masters, bf16 compute and moments, remat on, 5
+   ``make_train_step`` steps on ``SyntheticDataset`` batches of 2 x
+   (2048 + 1) at AdamW rate 3e-5, each profiled, the top kernels of the
+   last, the 6·N·tokens bound over the bf16 peak and the share of it,
+   the peak; finite losses, the last below the first, no
+   ``flash_attention`` launch; then, as a reading, the same 5 steps at
+   the issue's rate 3e-4; (13c) the same model at 2 layers in
+   float32, batch 1 x 256: ``loss_fn`` and every gradient leaf on the
+   card against the CPU from one seeded state (1e-4 * max|ref|), then
+   one full ``make_train_step`` at 3e-4 on both: the scalars within
+   1e-5, both moments within 1e-4 * max|ref|, the card's masters
+   within 1e-5 * max|ref| of the AdamW formula on its own moments, and
+   card against CPU within 2·lr; (13d)
+   the 2-layer cut in bf16: 4 straight steps against 2 steps, a
+   ``CheckpointManager`` save into a temporary directory (removed
+   after), a restore into a fresh state and 2 more (the losses of steps
+   3-4 within rtol 1e-6);
+14. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
 3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, 6c, 7a,
 7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a,
-10b, 11b-11e, 12a and 12b, 10c's dispatch; in 3g and 5 before each
-backward too) and read just after it.
+10b, 11b-11e, 12a and 12b, 10c's dispatch, each step of 13a and 13b,
+13c's card pass, 13d's runs; in 3g and 5 before each backward too) and
+read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -3349,6 +3376,7 @@ def phase_moe(dev) -> tuple:
     """10a deepseek-v2-236b, 10b mixtral-8x22b, 10c the ep dispatch (whose
     ranks then run 11f's scans); returns the serving runs' launch counts
     and each rank's 11f result."""
+    import dataclasses
     import gc
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -3861,6 +3889,7 @@ def phase_lm_archs(dev, scan_results: list) -> dict:
     layers), 11d recurrentgemma-9b, 11e rwkv6-3b, 11f (run by phase
     10c's ranks) the sequence-parallel scans; returns the serving runs'
     launch counts."""
+    import dataclasses
     import gc
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -4050,6 +4079,404 @@ def phase_frontends(dev) -> dict:
     return dict(counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+SPEC_LR = 0.05            # examples/train_lm.py's SGD rate
+TRAIN_STEPS = 5
+# 13b/13d's AdamW rate.  At h2o's full width the first Adam steps move
+# every weight by about the rate.  At 3e-4 with 2 warmup steps the loss
+# of the 24-layer model rose over 5 steps on the card (PERF.md §6); the
+# reference rises there too at 1 layer and a 256-token vocabulary
+# (tests/test_torch_train_wide.py), and at 2 layers and the full
+# vocabulary both packages jump at step 2 and end below the start
+# (tests/torch_train_cases.py run as a script).  At 3e-5 all of them fall
+TRAIN_LR = 3e-5
+TRAIN_BATCH = 2           # 13b: 2 x (2048 + 1) tokens a step
+TRAIN_SEQ = 2048
+TRAIN_CUT = 2             # 13c/13d: h2o at full width, 2 layers
+TRAIN_CUT_SEQ = 256       # 13c/13d: batch 1 x (256 + 1)
+RESUME_RTOL = 1e-6        # tests/test_substrate.py:187
+STEP_LR = 3e-4            # the issue's AdamW rate: 13c's full step, a
+                          # reading in 13b
+STATE_TOL = 1e-5          # tests/test_torch_train_state.py
+
+
+def _train_step_profiled(fn, tag: str, what: str, top: int = 0) -> tuple:
+    """Run ``fn`` once under the profiler, launch counts set to 0 just
+    before it and read just after: returns (fn's result, a record of the
+    wall ms, the device busy ms and device ops the profiler recorded, the
+    device span between CUDA events around the call, and the launches)
+    and prints one line, and with ``top`` the top kernels.  The span
+    bounds the busy time from above; a busy time well under it on a
+    device-bound step means the profiler lost records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    rows = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda e: -e.device_time_total)
+    rec = {"wall_ms": wall, "span_ms": ev[0].elapsed_time(ev[1]),
+           "busy_ms": sum(e.device_time_total for e in rows) / 1e3,
+           "ops": sum(e.count for e in rows), "launches": counts}
+    print(f"[{tag}] {what}: wall {wall:.2f} ms, device span "
+          f"{rec['span_ms']:.2f} ms (events), busy {rec['busy_ms']:.2f} ms "
+          f"in {rec['ops']} device ops (profiler), launches {counts}",
+          flush=True)
+    for e in rows[:top]:
+        print(f"[{tag}]   {e.device_time_total / 1e3:8.2f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    return out, rec
+
+
+def phase_train_spectral(dev) -> dict:
+    """13a: the learned spectral filter at croft-1024 (``Croft3D`` packed
+    r2c, ``local_impl="pallas"``, meshless): the target from seeded true
+    params (as ``examples/train_lm.py:85-89``), step 0's loss and both
+    gradients against the same loss through ``torch.fft.rfftn`` autograd
+    (GRAD_TOL of max|ref|), then TRAIN_STEPS SGD steps at SPEC_LR from the
+    identity init, each profiled: the loss falls, and ``fft4step``,
+    ``unpack_two_for_one`` and ``spectral_scale_full`` launch in every
+    step.  Returns the steps' launches."""
+    import torch
+    from repro_torch.core import Croft3D, FFTOptions
+    from repro_torch.models.spectral import (init_spectral_filter_params,
+                                             spectral_filter_apply)
+    from repro_torch.train import make_spectral_train_step
+    t_phase = time.time()
+    shape = (FULL,) * 3
+    torch.cuda.reset_peak_memory_stats(dev)
+    plan = Croft3D(shape, problem="r2c", strategy="packed",
+                   opts=FFTOptions(local_impl="pallas"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x = torch.randn(shape, device=dev, generator=gen)
+    with torch.no_grad():
+        true = {"gate": 1.0 + 0.3 * torch.randn(shape, device=dev,
+                                                generator=gen),
+                "filter": 1.0 + 0.3 * torch.randn(plan.spectrum_shape,
+                                                  device=dev, generator=gen)}
+        target = spectral_filter_apply(plan, true, x)
+    del true
+    step, loss_fn = make_spectral_train_step(plan, lr=SPEC_LR)
+    params = init_spectral_filter_params(gen, plan)      # the identity
+    names = ("gate", "filter")
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss0 = loss_fn(leaves, x, target)
+    got = torch.autograd.grad(loss0, [leaves[k] for k in names])
+    n3 = float(FULL ** 3)
+    d = torch.fft.rfftn(leaves["gate"] * x) * leaves["filter"] - target
+    oracle = torch.sum(torch.real(d * torch.conj(d))) / n3
+    del d
+    want = torch.autograd.grad(oracle, [leaves[k] for k in names])
+    loss_err = abs(loss0.item() - oracle.item()) / abs(oracle.item())
+    errs = {k: max_abs_diff(g, w) / max_abs(w)
+            for k, g, w in zip(names, got, want)}
+    del leaves, loss0, oracle, got, want
+    torch.cuda.empty_cache()
+    print(f"[13a] step 0 against torch.fft.rfftn autograd: loss rel err "
+          f"{loss_err:.3e}, gate.grad {errs['gate']:.3e}, filter.grad "
+          f"{errs['filter']:.3e} (tol {GRAD_TOL:.0e})", flush=True)
+    check(loss_err < GRAD_TOL and all(e < GRAD_TOL for e in errs.values()),
+          f"phase 13a: step 0 against the oracle {loss_err} {errs}")
+    counts, losses = Counter(), []
+    for i in range(TRAIN_STEPS):
+        (params, loss), rec = _train_step_profiled(
+            lambda: step(params, x, target), "13a", f"step {i}",
+            top=8 if i == TRAIN_STEPS - 1 else 0)
+        losses.append(loss.item())
+        counts.update(rec["launches"])
+        missing = [k for k in ("fft4step", "unpack_two_for_one",
+                               "spectral_scale_full")
+                   if not rec["launches"].get(k)]
+        check(not missing, f"phase 13a: step {i} launched no {missing}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[13a] losses {['%.4f' % v for v in losses]}; launches over "
+          f"{TRAIN_STEPS} steps {dict(counts)} (hermitian_extend "
+          f"{counts.get('hermitian_extend', 0)}); peak {peak:.2f} GiB; "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"phase 13a: the loss did not fall {losses}")
+    del params, x, target
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
+def phase_train_lm(dev) -> dict:
+    """13b: h2o-danube-3-4b at full width and depth, bf16 compute, fp32
+    masters, bf16 moments, remat on, AdamW at TRAIN_LR: TRAIN_STEPS steps
+    of ``make_train_step`` on ``SyntheticDataset`` batches of TRAIN_BATCH x
+    (TRAIN_SEQ + 1), each profiled; finite losses, the last below the
+    first (``tests/test_models_smoke.py:48-64``), no ``flash_attention``
+    launch (a grad-taking pass runs the blockwise core), the step's
+    6·N·tokens bound and the share of it.  Returns the steps' launches."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.data import SyntheticDataset
+    t_phase = time.time()
+    cfg = _cut(ARCH)
+    ocfg = OptConfig(lr=TRAIN_LR, warmup_steps=2, decay_steps=10,
+                     moment_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, t_init = _wall(lambda: init_train_state(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, ocfg,
+        device=dev))
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    print(f"[13b] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {n_params:.4e} parameters; train state "
+          f"(fp32 masters, bf16 moments) in {t_init:.0f} ms, "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    step = make_train_step(cfg, ocfg, None, TRAIN_BATCH, kv_block=KV_BLOCK)
+    ds = SyntheticDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED,
+                          device=dev)
+    counts, losses, recs = Counter(), [], []
+    for i in range(TRAIN_STEPS):
+        batch = ds.batch_at(i)
+        (state, metrics), rec = _train_step_profiled(
+            lambda: step(state, batch), "13b", f"step {i}",
+            top=12 if i == TRAIN_STEPS - 1 else 0)
+        losses.append(metrics["loss"].item())
+        counts.update(rec["launches"])
+        recs.append(rec)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound = 6.0 * n_params * tokens / BF16_FLOP_S * 1e3
+    busy = statistics.median(r["busy_ms"] for r in recs[1:])
+    span = statistics.median(r["span_ms"] for r in recs[1:])
+    wall = statistics.median(r["wall_ms"] for r in recs[1:])
+    print(f"[13b] losses {['%.4f' % v for v in losses]}; the step's bound "
+          f"6·N·tokens = {6.0 * n_params * tokens:.3e} FLOP over "
+          f"{BF16_FLOP_S:.3e} FLOP/s = {bound:.2f} ms; median of steps "
+          f"1-{TRAIN_STEPS - 1}: busy {busy:.2f} ms ({bound / busy:.1%} of "
+          f"the bound), span {span:.2f} ms ({bound / span:.1%}), wall "
+          f"{wall:.2f} ms; peak {peak:.2f} GiB; "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"phase 13b: losses {losses}")
+    check(not counts.get(fa.NAME),
+          f"phase 13b: the train step launched flash_attention {counts}")
+    del state, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a reading, not a check: the same steps from the same state at the
+    # issue's rate STEP_LR (PERF.md §6: at 24 layers the loss rose there)
+    ocfg = dataclasses.replace(ocfg, lr=STEP_LR)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, ocfg, device=dev)
+    step = make_train_step(cfg, ocfg, None, TRAIN_BATCH, kv_block=KV_BLOCK)
+    high = [step(state, ds.batch_at(i))[1]["loss"].item()
+            for i in range(TRAIN_STEPS)]
+    print(f"[13b] the same steps at rate {STEP_LR:g}: losses "
+          f"{['%.4f' % v for v in high]} (a reading)", flush=True)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
+def _adamw_plain(p0, m, v, lr, step: int, ocfg, decays: bool):
+    """The master after an AdamW step, from the step's own moments (clip
+    included), in float64: the reference's formula
+    (``repro/train/optimizer.py:adamw_update``)."""
+    import torch
+    bc1, bc2 = 1 - ocfg.b1 ** step, 1 - ocfg.b2 ** step
+    p0, m, v = p0.double(), m.double(), v.double()
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
+    if decays:
+        delta = delta + ocfg.weight_decay * p0
+    return p0 - lr * delta
+
+
+def _check_full_step(cfg, cpu, card, batch) -> None:
+    """13c, the step: one ``make_train_step`` (fp32 moments, STEP_LR)
+    from one state on the CPU and on the card.  The loss, the learning
+    rate, the gradient norm and the clip scale within STATE_TOL
+    (relative); ``m`` and ``v``, the clipped gradient's moments, within
+    GRAD_TOL of max|ref| per leaf, as 13c holds the gradient; each
+    master on the card within STATE_TOL of max|ref| of the AdamW formula
+    (``_adamw_plain``, float64) applied to the card's own moments, with
+    weight decay where the reference's layout has >= 2 dims (a layer's
+    norm scales count the repeat axis the reference stacks them on).
+    The masters card against CPU are printed, and held only within 2·lr
+    (+ STATE_TOL of max|ref|): Adam's first update is g / (|g| + eps),
+    so an element whose gradient lies within the gradient's tolerance of
+    zero may move up to lr either way on each side."""
+    import torch
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    ocfg = OptConfig(lr=STEP_LR, warmup_steps=2, decay_steps=10)
+    p0 = {k: v.detach().clone() for k, v in card.named_parameters()}
+    states = {n: {"params": mdl,
+                  "opt": init_opt_state(dict(mdl.named_parameters()), ocfg)}
+              for n, mdl in (("cpu", cpu), ("card", card))}
+    step = make_train_step(cfg, ocfg, None, 1, kv_block=KV_BLOCK)
+    met = {}
+    for n, st in states.items():
+        t0 = time.time()
+        met[n] = {k: float(v) for k, v in step(st, batch)[1].items()
+                  if k in ("loss", "lr", "grad_norm", "clip_scale")}
+        print(f"[13c] full step on the {n}: {time.time() - t0:.1f} s; "
+              f"{met[n]}", flush=True)
+    scal = max(abs(met["card"][k] - w) / abs(w)
+               for k, w in met["cpu"].items())
+    mom = max((float((states["card"]["opt"][x][k].cpu() - w).abs().max()
+                     / w.abs().max().clamp_min(1e-30)), f"{x}:{k}")
+              for x in ("m", "v")
+              for k, w in states["cpu"]["opt"][x].items())
+    lr = met["card"]["lr"]
+    stacked = {k for k in p0 if k.startswith(("stages.", "encoder.layers."))}
+    cpu_p = dict(cpu.named_parameters())
+    formula, vs_cpu, past, over = (0.0, ""), (0.0, ""), 0, -1.0
+    for k, p in card.named_parameters():
+        scale = float(p0[k].abs().max().clamp_min(1e-30))
+        want = _adamw_plain(p0[k], states["card"]["opt"]["m"][k],
+                            states["card"]["opt"]["v"][k], lr, 1, ocfg,
+                            p.ndim + (k in stacked) >= 2)
+        formula = max(formula, (float((p.double() - want).abs().max())
+                                / scale, k))
+        d = (p.cpu() - cpu_p[k]).abs()
+        vs_cpu = max(vs_cpu, (float(d.max()) / scale, k))
+        past += int((d > STATE_TOL * scale).sum())
+        over = max(over, float(d.max()) - 2 * lr - STATE_TOL * scale)
+    n = sum(p.numel() for p in p0.values())
+    print(f"[13c] full step, card vs CPU: loss/lr/grad_norm/clip_scale "
+          f"rel err {scal:.3e} (tol {STATE_TOL:.0e}); moments worst "
+          f"{mom[1]} {mom[0]:.3e} (tol {GRAD_TOL:.0e}); masters against "
+          f"the AdamW formula on the card's moments worst {formula[1]} "
+          f"{formula[0]:.3e} (tol {STATE_TOL:.0e}); masters card vs CPU "
+          f"worst {vs_cpu[1]} {vs_cpu[0]:.3e} of max|ref|, {past} of {n} "
+          f"elements past {STATE_TOL:.0e} of max|ref|, none more than "
+          f"2·lr = {2 * lr:.3e} past it: {over <= 0}", flush=True)
+    check(scal <= STATE_TOL and mom[0] <= GRAD_TOL
+          and formula[0] <= STATE_TOL and over <= 0,
+          f"phase 13c: the full step {scal} {mom} {formula} {over}")
+
+
+def phase_train_cut(dev) -> dict:
+    """13c: h2o at full width cut to TRAIN_CUT layers, float32, batch 1 x
+    TRAIN_CUT_SEQ: one ``value_and_grad`` of ``loss_fn`` on the card and
+    on the CPU from one seeded state, the loss and every gradient leaf
+    within GRAD_TOL of max|ref| (the CPU's); then one full
+    ``make_train_step`` on both from that state (``_check_full_step``).
+    13d: the same cut in bf16:
+    4 straight steps, and 2 steps, ``CheckpointManager.save`` into a
+    temporary directory, ``restore`` into a fresh state, 2 more; the
+    losses of steps 3-4 within RESUME_RTOL.  Returns 13d's launches."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.device import full_fp32_matmul
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_step import value_and_grad
+    t_phase = time.time()
+    full_fp32_matmul(dev)
+    cfg = _cut(ARCH, TRAIN_CUT, "float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = init_params(cfg, None, "meta").to_empty(device=dev)
+    card.load_state_dict(cpu.state_dict())
+    batch = SyntheticDataset(cfg.vocab, TRAIN_CUT_SEQ, 1,
+                             seed=SEED).batch_at(0)
+    t0 = time.time()
+    want_loss, _, want = value_and_grad(
+        cpu, cfg, {k: torch.from_numpy(v) for k, v in batch.items()},
+        kv_block=KV_BLOCK)
+    t_cpu = time.time() - t0
+    reset_launch_counts()
+    got_loss, _, got = value_and_grad(
+        card, cfg, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+        kv_block=KV_BLOCK)
+    counts = launch_counts()
+    loss_err = abs(got_loss.item() - want_loss.item()) / abs(want_loss.item())
+    worst = max((float((got[k].cpu() - w).abs().max() / w.abs().max()), k)
+                for k, w in want.items())
+    print(f"[13c] {ARCH} at {TRAIN_CUT} layers, float32, 1 x "
+          f"{TRAIN_CUT_SEQ}: card vs CPU loss rel err {loss_err:.3e}, worst "
+          f"gradient leaf {worst[1]} {worst[0]:.3e} (tol {GRAD_TOL:.0e}); "
+          f"CPU {t_cpu:.1f} s; launches {counts}", flush=True)
+    check(loss_err < GRAD_TOL and worst[0] < GRAD_TOL,
+          f"phase 13c: card vs CPU {loss_err} {worst}")
+    del got, want
+    _check_full_step(cfg, cpu, card, batch)
+    del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = _cut(ARCH, TRAIN_CUT)
+    ocfg = OptConfig(lr=TRAIN_LR, warmup_steps=2, decay_steps=10,
+                     moment_dtype="bfloat16")
+    step = make_train_step(cfg, ocfg, None, 1, kv_block=KV_BLOCK)
+    ds = SyntheticDataset(cfg.vocab, TRAIN_CUT_SEQ, 1, seed=SEED, device=dev)
+
+    def fresh():
+        return init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                                cfg, ocfg, device=dev)
+
+    reset_launch_counts()
+    state = fresh()
+    full = [step(state, ds.batch_at(i))[1]["loss"].item() for i in range(4)]
+    del state
+    state = fresh()
+    for i in range(2):
+        step(state, ds.batch_at(i))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(tmp, keep=1)
+        t0 = time.time()
+        mgr.save(2, state)
+        mgr.wait()
+        t_save = time.time() - t0
+        del state
+        gc.collect()
+        t0 = time.time()
+        state = mgr.restore(fresh())
+        t_restore = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed = [step(state, ds.batch_at(i))[1]["loss"].item()
+               for i in range(2, 4)]
+    counts = launch_counts()
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[2:]))
+    print(f"[13d] bf16, {TRAIN_CUT} layers: straight {full}, resumed at 2 "
+          f"{resumed}: max rel err {err:.3e} (tol {RESUME_RTOL:.0e}); save "
+          f"{t_save:.1f} s, restore {t_restore:.1f} s; "
+          f"{time.time() - t_phase:.1f} s for 13c-13d", flush=True)
+    check(err <= RESUME_RTOL, f"phase 13d: resume {resumed} vs {full}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train(dev) -> dict:
+    """Phase 13: 13a, 13b, 13c and 13d; returns the launches of the
+    driven runs."""
+    t0 = time.time()
+    counts = Counter(phase_train_spectral(dev))
+    counts.update(phase_train_lm(dev))
+    counts.update(phase_train_cut(dev))
+    print(f"[13] phase 13 {time.time() - t0:.1f} s", flush=True)
+    return dict(counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4076,7 +4503,8 @@ def main() -> int:
     trace_counts, trace_results = phase_trace()
     moe_counts, scan_results = phase_moe(dev)
     paths += [trace_counts, phase_fnet(dev, trace_results), moe_counts,
-              phase_lm_archs(dev, scan_results), phase_frontends(dev)]
+              phase_lm_archs(dev, scan_results), phase_frontends(dev),
+              phase_train(dev)]
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {

@@ -12,14 +12,17 @@ prefill passes, the encoder's non-causal layers, no prefix-LM span) is
 exactly the function of the hand-written flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), and
 :func:`gqa_fwd` sends that case there when its head dims are within the
-kernel's ``D_MAX``; every other call (decode over the cache,
+kernel's ``D_MAX`` and no gradient is taken through it; every other call
+(a training pass whose q, k or v requires grad, decode over the cache,
 cross-attention over an encoder memory, a segment at an offset,
 prefix-LM, head_dim 256 as in gemma3, recurrentgemma and paligemma)
-runs :func:`blockwise_attention` in plain torch, as the reference does.
-The route depends on the shapes alone, so the CPU takes the route the
-card takes.  MLA always runs the blockwise core, as the reference does:
-its head dims (576/512 absorbed, 192/128 decompressed) are past the
-kernel's ``D_MAX``.  The sharding hints of the reference (``kv_spec``,
+runs :func:`blockwise_attention` in plain torch, as the reference does:
+the kernel has no backward, and the reference's training pass
+differentiates the blockwise core.  The route depends on the shapes and
+the grad state alone, so the CPU takes the route the card takes.  MLA
+always runs the blockwise core, as the reference does: its head dims
+(576/512 absorbed, 192/128 decompressed) are past the kernel's
+``D_MAX``.  The sharding hints of the reference (``kv_spec``,
 ``kv_local_spec``) have no counterpart: the port is meshless.
 """
 
@@ -29,11 +32,12 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import D_MAX, flash_attention
 from repro_torch.models.config import AttentionSpec
 from repro_torch.models.layers import (apply_rope, master_param, rope_angles,
-                                       truncated_normal_)
+                                       takes_grad, truncated_normal_)
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -124,16 +128,35 @@ def init_attention(d: int, a: AttentionSpec, generator=None, device=None):
 # blockwise online-softmax core
 # --------------------------------------------------------------------------
 
+def _block_step(qg, kj, vj, mask, m, l, acc):
+    """One kv block of the online softmax: (m, l, acc) -> the new carry."""
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, kj.float())
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    scale_prev = torch.exp(m - m_new)
+    l = l * scale_prev + p.sum(-1)
+    acc = acc * scale_prev[..., None] + torch.einsum(
+        "bqkgc,bckd->bqkgd", p.to(vj.dtype).float(), vj.float())
+    return m_new, l, acc
+
+
 def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
-                        kv_block: int = 1024) -> torch.Tensor:
+                        kv_block: int = 1024,
+                        remat_step: bool = True) -> torch.Tensor:
     """q (B,Sq,H,hd) · k,v (B,Sk,KV,hd) -> (B,Sq,H,hd_v) in float32.
 
     Online softmax over kv blocks (peak score memory O(Sq * kv_block)),
     GQA grouping by reshaping q to (…, KV, G, hd).  ``q_pos`` (Sq,) /
     ``k_pos`` (Sk,) are global indices.  Products accumulate in float32;
     p is cast to v's dtype before the second product, as the reference
-    does.  The reference's ``remat_step`` is a backward-pass trade and has
-    no counterpart here (no gradients in this slice).
+    does.
+
+    ``remat_step``: when a gradient is taken through more than one kv
+    block, each block's step runs in ``torch.utils.checkpoint``, so the
+    backward recomputes the (Sq x blk) probabilities instead of keeping
+    them as float32 residuals (the reference's ``jax.checkpoint`` of its
+    scan step, the flash-backward memory trade).
     """
     b, sq, h, hd = q.shape
     _, sk, kv_heads, hd_v = v.shape
@@ -142,23 +165,19 @@ def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
     blk = min(kv_block, sk)
     while sk % blk:            # largest divisor of sk not exceeding kv_block
         blk -= 1
+    remat = remat_step and sk > blk and takes_grad(q, k, v)
     m = torch.full((b, sq, kv_heads, g), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(b, sq, kv_heads, g, hd_v, dtype=torch.float32,
                       device=q.device)
     for c0 in range(0, sk, blk):
-        kj, vj = k[:, c0:c0 + blk], v[:, c0:c0 + blk]
-        s = torch.einsum("bqkgd,bckd->bqkgc", qg, kj.float())
-        mask = _mask_block(ms, q_pos, k_pos[c0:c0 + blk])
-        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        scale_prev = torch.exp(m - m_new)
-        l = l * scale_prev + p.sum(-1)
-        acc = acc * scale_prev[..., None] + torch.einsum(
-            "bqkgc,bckd->bqkgd", p.to(vj.dtype).float(), vj.float())
-        m = m_new
+        args = (qg, k[:, c0:c0 + blk], v[:, c0:c0 + blk],
+                _mask_block(ms, q_pos, k_pos[c0:c0 + blk]), m, l, acc)
+        if remat:
+            m, l, acc = checkpoint(_block_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _block_step(*args)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, sq, h, hd_v)
 
@@ -202,9 +221,9 @@ def gqa_fwd(p: GQA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
     scale = a.scale or a.head_dim ** -0.5
     if kv is None and type(start) is int and start == 0 \
             and ms.prefix_len == 0 and q.shape[-1] <= D_MAX \
-            and v.shape[-1] <= D_MAX:
-        # positions 0..S-1 on both sides, head dims the kernel takes: the
-        # flash-attention kernel's case
+            and v.shape[-1] <= D_MAX and not takes_grad(q, k, v):
+        # positions 0..S-1 on both sides, head dims the kernel takes, no
+        # gradient through it: the flash-attention kernel's case
         o = flash_attention((q * scale).contiguous(), k.contiguous(),
                             v.contiguous(), causal=ms.causal,
                             window=ms.window, scale=1.0)

@@ -76,3 +76,52 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
         load_tree(model.encoder.final_norm, enc["final_norm"],
                   "encoder.final_norm")
     return model
+
+
+def named_from_numpy(tree: dict, cfg: ModelConfig) -> dict:
+    """A tree shaped like the reference's ``init_params`` (its parameters,
+    gradients or moments) as {port parameter name: array}, in
+    ``Model.named_parameters()`` order, each stacked leaf unstacked as
+    :func:`params_from_numpy` does.  Dtypes are kept."""
+    out = {}
+
+    def put(prefix: str, sub: dict, index=None) -> None:
+        for name, arr in _leaves(sub).items():
+            arr = np.asarray(arr)
+            out[f"{prefix}.{name}"] = arr if index is None else arr[index]
+
+    put("embed", tree["embed"])
+    put("final_norm", tree["final_norm"])
+    for si, stage in enumerate(cfg.stages):
+        n = len(stage.pattern)
+        for pi in range(n):
+            for t in range(stage.repeat):
+                put(f"stages.{si}.{t * n + pi}", tree["stages"][si][f"p{pi}"],
+                    t)
+    if cfg.encoder is not None:
+        for t in range(cfg.encoder.n_layers):
+            put(f"encoder.layers.{t}", tree["encoder"]["layers"], t)
+        put("encoder.final_norm", tree["encoder"]["final_norm"])
+    names = [n for n, _ in Model(cfg, device="meta").named_parameters()]
+    if set(names) != set(out):
+        raise ValueError(f"the tree has {sorted(set(out) - set(names))} "
+                         f"beyond the model, lacks "
+                         f"{sorted(set(names) - set(out))}")
+    return {n: out[n] for n in names}
+
+
+def opt_state_from_numpy(state: dict, cfg: ModelConfig, device=None) -> dict:
+    """The reference's ``init_opt_state`` tree ({"m", "v", "step"}, numpy
+    leaves) as the port's AdamW state (``train.optimizer``): moments keyed
+    by parameter name in their stored dtype (bf16 moments stay bf16), the
+    step an int32 scalar, on ``device`` (default: the CUDA card)."""
+    from repro_torch.train.checkpoint import tensor_from_numpy
+    dev = resolve_device(device)
+    return {
+        "m": {k: tensor_from_numpy(a, dev)
+              for k, a in named_from_numpy(state["m"], cfg).items()},
+        "v": {k: tensor_from_numpy(a, dev)
+              for k, a in named_from_numpy(state["v"], cfg).items()},
+        "step": torch.tensor(int(np.asarray(state["step"])),
+                             dtype=torch.int32, device=dev),
+    }

@@ -19,8 +19,20 @@ import torch.nn.functional as F
 from torch import nn
 
 def master_param(*shape, device=None) -> nn.Parameter:
+    """An fp32 master.  It does not require grad: the training step
+    (``train.train_step.make_train_step``) differentiates with respect to
+    compute-dtype leaves it makes from the masters, and updates the
+    masters in place; serving never records a graph through them."""
     return nn.Parameter(torch.empty(*shape, dtype=torch.float32,
                                     device=device), requires_grad=False)
+
+
+def takes_grad(*xs: torch.Tensor) -> bool:
+    """Whether autograd records through any of ``xs``: grad mode is on and
+    one of them requires grad.  The one rule wherever a forward-only path
+    stands beside a differentiable one (the attention route, the per-layer
+    and per-kv-block checkpoints, the RWKV scan's in-place ops)."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def truncated_normal_(t: torch.Tensor, std: float, generator=None):

@@ -15,8 +15,9 @@ group ``t``), and the caches follow the same per-layer layout
 carries a reference parameter tree across.
 
 Three modes share one layer implementation:
-  train    full-sequence pass, no cache I/O (inference only in this
-           slice: the teacher-forcing oracle; no gradients, no remat)
+  train    full-sequence teacher forcing, no cache I/O; under autograd
+           each layer runs in ``torch.utils.checkpoint`` (remat) and
+           the MoE layers' load-balance loss is summed
   prefill  full sequence + writes the KV, latent or recurrent caches
            (serving cold start)
   decode   single token against the caches (serving steady state)
@@ -33,10 +34,13 @@ queue 1 item 8e, which would route MoE layers through
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -199,9 +203,9 @@ def _recurrent(p: Layer, h, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
 
 def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
               cache):
-    """-> (x, cache).  The reference's third output, the MoE auxiliary
-    loss, is computed in train mode only, for the optimizer; this port
-    has no training step yet, so it is dropped."""
+    """-> (x, cache, aux).  ``aux``, the MoE layer's load-balance loss
+    (``moe.aux_load_balance_loss``), is computed in train mode only; it
+    is 0.0 for every other layer and mode."""
     h = L.norm_fwd(p.ln1, x, cfg.norm, cfg.norm_eps)
     if spec.mixer == "spectral":
         from repro_torch.models.spectral import spectral_mixer
@@ -216,16 +220,19 @@ def layer_fwd(p: Layer, x, spec: LayerSpec, cfg: ModelConfig, ctx: Ctx,
         y, cache = _cross_attention(p, hc, spec, cfg, ctx, cache)
         x = x + y
     h2 = L.norm_fwd(p.ln2, x, cfg.norm, cfg.norm_eps)
+    aux = 0.0
     if spec.ffn == "moe":
-        return x + moe_lib.moe_fwd(p.ffn, h2, spec.moe), cache
+        if ctx.mode == "train":
+            aux = moe_lib.aux_load_balance_loss(p.ffn, h2, spec.moe)
+        return x + moe_lib.moe_fwd(p.ffn, h2, spec.moe), cache, aux
     if spec.ffn == "rwkv_cm":
         rc = None if ctx.mode == "train" else cache["rec"]
         prev = None if rc is None else rc["x_prev_ffn"]
         y = L.ffn_fwd(p.ffn, h2, "rwkv_cm", x_prev=L.token_shift(h2, prev))
         if rc is not None:
             rc["x_prev_ffn"].copy_(h2[:, -1])
-        return x + y, cache
-    return x + L.ffn_fwd(p.ffn, h2, spec.ffn), cache
+        return x + y, cache, aux
+    return x + L.ffn_fwd(p.ffn, h2, spec.ffn), cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -250,7 +257,10 @@ class Model(nn.Module):
     """The embedding, the stages (``nn.ModuleList`` of layers each), the
     final norm and, for an encoder-decoder, ``encoder``; parameters are
     fp32 masters drawn from ``generator`` on ``device`` (default: the
-    current CUDA card; ``"cpu"`` or ``"meta"`` when asked).  The modality
+    current CUDA card; ``"cpu"`` or ``"meta"`` when asked).  The masters
+    do not require grad: a training step differentiates with respect to
+    compute-dtype copies of them that it makes itself
+    (``train.train_step.make_train_step``).  The modality
     frontends are stubs, as in the reference: frames and patch embeddings
     come in as (B, n_frontend_tokens, d_model) arrays."""
 
@@ -289,13 +299,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 # forward
 # --------------------------------------------------------------------------
 
-@torch.no_grad()
 def encode(model: Model, cfg: ModelConfig, frames: torch.Tensor,
            kv_block: int = 1024) -> torch.Tensor:
     """Encoder stack (whisper): stub frame embeddings (B, T, d_model) ->
     memory (B, T, d_model) in the compute dtype.  Its self-attention is a
     non-causal segment at position 0 (``start`` the int 0), the
-    flash-attention kernel's case."""
+    flash-attention kernel's case when no gradient is taken through it
+    (else the blockwise core, as in the reference's training pass)."""
     e = cfg.encoder
     if e is None:
         raise ValueError(f"{cfg.name} has no encoder")
@@ -304,16 +314,47 @@ def encode(model: Model, cfg: ModelConfig, frames: torch.Tensor,
     ctx = Ctx(mode="train", q_pos=pos, start=0, prefix_len=0,
               kv_block=kv_block)
     for layer in model.encoder.layers:
-        x, _ = layer_fwd(layer, x, e.layer, cfg, ctx, None)
+        x, _, _ = layer_fwd(layer, x, e.layer, cfg, ctx, None)
     return L.norm_fwd(model.encoder.final_norm, x, cfg.norm, cfg.norm_eps)
 
 
-@torch.no_grad()
+def stacked_names(model: nn.Module) -> frozenset:
+    """The parameters that the reference stacks on a leading repeat axis
+    (``init_params``: the leaves of every stage layer and encoder layer).
+    Each has one more dimension there than here, and the reference's ndim
+    rules, weight decay (``train.optimizer._decay_mask``) and the cast to
+    the compute dtype that its train step differentiates
+    (``train.train_step.compute_leaves``), read that layout: a layer's
+    norm scales and biases are 2-D there."""
+    return frozenset(n for n, _ in model.named_parameters()
+                     if n.startswith(("stages.", "encoder.layers.")))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of the matmuls without batch dims, recompute the
+    rest (the reference's ``dots_with_no_batch_dims_saveable``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(policy: str) -> dict:
+    """``torch.utils.checkpoint`` keywords for a remat policy name."""
+    if policy == "nothing":
+        return {}
+    if policy == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+    raise ValueError(f"remat_policy {policy!r}: 'nothing' or 'dots'")
+
+
 def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
             mode: str = "train", caches=None, start: int = 0,
             prefix_embeds: Optional[torch.Tensor] = None,
             enc_out: Optional[torch.Tensor] = None, kv_block: int = 1024,
-            scan_chunk: Optional[int] = None, shard: Any = None):
+            scan_chunk: Optional[int] = None, remat: Optional[bool] = None,
+            return_hidden: bool = False, shard: Any = None,
+            remat_policy: str = "nothing"):
     """Token ids (B, S) -> (logits (B, S, vocab), caches).
 
     ``prefix_embeds`` (B, P, D): modality-stub embeddings (paligemma's
@@ -325,11 +366,22 @@ def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
     index, prefix included), a Python int.  Prefill and decode write
     ``caches`` in place and return them; caches is None in train mode.
     ``scan_chunk`` overrides the recurrent layers' chunk.
+
+    ``remat`` (default: on in train mode): a layer through which autograd
+    records runs in ``torch.utils.checkpoint`` (``use_reentrant=False``),
+    keeping only its input; ``remat_policy="dots"`` also keeps its
+    matmul outputs.  ``return_hidden``: return the final-normed hidden
+    states in place of the logits, and in train mode also the summed MoE
+    load-balance loss: ``(hidden, None, aux)``.  No gradient is taken
+    here; a caller that wants one runs the call under autograd (the
+    serving steps run theirs under ``torch.no_grad()``).
     """
     if shard is not None:
         raise NotImplementedError(f"sharded forward (ShardCtx): {LM_ITEM}e")
     if mode != "train" and caches is None:
         raise ValueError(f"mode {mode!r} needs caches")
+    remat = (mode == "train") if remat is None else remat
+    remat_kw = _remat_kwargs(remat_policy)
     dtype = getattr(torch, cfg.dtype)
     x = L.embed_fwd(model.embed, tokens, dtype, cfg.emb_scale_by_dim)
     n_prefix = 0
@@ -341,12 +393,23 @@ def forward(model: Model, cfg: ModelConfig, tokens: torch.Tensor, *,
     ctx = Ctx(mode=mode, q_pos=q_pos, start=start,
               prefix_len=n_prefix if cfg.prefix_lm else 0,
               kv_block=kv_block, scan_chunk=scan_chunk, enc_out=enc_out)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, stage in enumerate(cfg.stages):
         for li, layer in enumerate(model.stages[si]):
-            cache = caches[si][li] if caches is not None else None
-            x, _ = layer_fwd(layer, x, stage.pattern[li % len(stage.pattern)],
-                             cfg, ctx, cache)
+            spec = stage.pattern[li % len(stage.pattern)]
+            if caches is None and remat \
+                    and L.takes_grad(x, *layer.parameters()):
+                x, _, aux = checkpoint(layer_fwd, layer, x, spec, cfg, ctx,
+                                       None, use_reentrant=False, **remat_kw)
+            else:
+                cache = caches[si][li] if caches is not None else None
+                x, _, aux = layer_fwd(layer, x, spec, cfg, ctx, cache)
+            aux_total = aux_total + aux
     x = L.norm_fwd(model.final_norm, x, cfg.norm, cfg.norm_eps)
     if n_prefix:
         x = x[:, n_prefix:]
+    if return_hidden:
+        if mode == "train":
+            return x, caches, aux_total
+        return x, caches
     return L.logits_fwd(model.embed, x, cfg.logit_softcap), caches

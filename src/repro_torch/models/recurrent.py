@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import RecurrentSpec
-from repro_torch.models.layers import (master_param, token_shift,
-                                       truncated_normal_)
+from repro_torch.models.layers import (master_param, takes_grad,
+                                       token_shift, truncated_normal_)
 
 
 # --------------------------------------------------------------------------
@@ -90,6 +90,7 @@ def matrix_recurrence(log_w, k, v, r, u, s0, chunk: int = 64):
     c = _chunk_len(t, chunk)
     strict = torch.ones(c, c, dtype=torch.bool, device=k.device).tril(-1)
     masked = ~strict[None, :, :, None, None]          # s >= t
+    grad = takes_grad(log_w, k, v, r, u, s0)
     s, outs = s0, []
     for c0 in range(0, t, c):
         lw, kk, vv, rr = (x[:, c0:c0 + c] for x in (log_w, k, v, r))
@@ -98,10 +99,15 @@ def matrix_recurrence(log_w, k, v, r, u, s0, chunk: int = 64):
         # state readout: o_state[t] = (r_t ⊙ exp(d_prev[t])) · S_entry
         o_state = torch.einsum("bthk,bhkv->bthv", rr * torch.exp(d_prev), s)
         # intra-chunk: scores[t,s] = Σ_K r_t exp(d_prev[t]-dcum[s]) k_s, s<t
-        expdiff = (d_prev[:, :, None] - dcum[:, None]).masked_fill_(
-            masked, float("-inf")).exp_()            # (B, C, C, H, K)
-        scores = torch.einsum("btshk,bshk->bths",
-                              expdiff.mul_(rr[:, :, None]), kk)
+        diff = d_prev[:, :, None] - dcum[:, None]    # (B, C, C, H, K)
+        if grad:
+            # out of place: exp's backward reads its own output
+            expdiff = diff.masked_fill(masked, float("-inf")).exp() \
+                * rr[:, :, None]
+        else:
+            expdiff = diff.masked_fill_(masked, float("-inf")).exp_().mul_(
+                rr[:, :, None])
+        scores = torch.einsum("btshk,bshk->bths", expdiff, kk)
         o_intra = torch.einsum("bths,bshv->bthv", scores, vv)
         # current-token bonus u:  o += Σ_K (r_t ⊙ u ⊙ k_t) v_t
         o_bonus = (rr * u[None, None] * kk).sum(-1, keepdim=True) * vv

@@ -847,3 +847,110 @@ def test_gqa_head_dim_256_takes_the_blockwise_core_on_the_card(
     tol = ATTN_TOL if dtype == torch.float32 \
         else ATTN_BF16_REL * want.abs().max().item() + ATTN_TOL
     assert (got.cpu().float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One smoke-size train step of h2o-danube-3-4b in float32 on the card
+    against the same step on the CPU from one seeded state: the loss,
+    every gradient leaf (``value_and_grad``, 1e-4·max|ref|) and, after
+    ``make_train_step``'s AdamW update, both moments of every leaf (the
+    same tolerance; the first update itself is lr times about the sign of
+    each gradient element, too sharp to compare between the two), and
+    the card's masters against the AdamW formula on the card's own
+    moments (1e-5·max|ref|, float64, weight decay where the reference's
+    stacked layout has >= 2 dims); the grad-taking pass launches no
+    ``flash_attention``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.device import full_fp32_matmul
+    from repro_torch.models.model import stacked_names
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_step import value_and_grad
+    full_fp32_matmul(cuda_device)
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b", smoke=True),
+                              dtype="float32")
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0)
+    cpu = init_train_state(torch.Generator().manual_seed(0), cfg, ocfg,
+                           device="cpu")
+    card = init_train_state(torch.Generator().manual_seed(0), cfg, ocfg,
+                            device="cpu")
+    card["params"].to(cuda_device)
+    card["opt"] = {"m": {k: v.to(cuda_device)
+                         for k, v in card["opt"]["m"].items()},
+                   "v": {k: v.to(cuda_device)
+                         for k, v in card["opt"]["v"].items()},
+                   "step": card["opt"]["step"].to(cuda_device)}
+    batch = SyntheticDataset(cfg.vocab, 48, 2, seed=3).batch_at(0)
+    t = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want_loss, _, want = value_and_grad(cpu["params"], cfg, t, kv_block=16)
+    before = launch_counts()
+    got_loss, _, got = value_and_grad(
+        card["params"], cfg, {k: v.to(cuda_device) for k, v in t.items()},
+        kv_block=16)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after.get(flash_attention.NAME, 0) == \
+        before.get(flash_attention.NAME, 0)
+    assert abs(got_loss.item() - want_loss.item()) <= 1e-4 * abs(
+        want_loss.item())
+    for k, w in want.items():
+        assert (got[k].cpu() - w).abs().max() <= TF_TOL / 2 * w.abs().max(), k
+    step = make_train_step(cfg, ocfg, None, 2, kv_block=16)
+    p0 = {k: v.double() for k, v in cpu["params"].state_dict().items()}
+    step(cpu, batch)
+    lr = step(card, batch)[1]["lr"].item()
+    for mom in ("m", "v"):
+        for k, w in cpu["opt"][mom].items():
+            g = card["opt"][mom][k].cpu()
+            assert (g - w).abs().max() <= TF_TOL / 2 * w.abs().max(), k
+    stacked = stacked_names(card["params"])
+    for k, p in card["params"].named_parameters():
+        m, v = (card["opt"][x][k].cpu().double() for x in ("m", "v"))
+        delta = m / (1 - ocfg.b1) / ((v / (1 - ocfg.b2)).sqrt() + ocfg.eps)
+        if p.ndim + (k in stacked) >= 2:
+            delta = delta + ocfg.weight_decay * p0[k]
+        want = p0[k] - lr * delta
+        assert (p.cpu().double() - want).abs().max() <= \
+            1e-5 * p0[k].abs().max(), k
+
+
+@pytest.mark.cuda
+def test_spectral_train_step_launches_the_kernels(cuda_device):
+    """A 64^3 packed r2c spectral-filter step with ``local_impl="pallas"``
+    on the card: ``fft4step``, ``unpack_two_for_one`` and
+    ``spectral_scale_full`` launch, and the params after the step are the
+    CPU step's within 1e-5·max|ref|."""
+    from repro_torch.core import Croft3D, FFTOptions
+    from repro_torch.models.spectral import (init_spectral_filter_params,
+                                             spectral_filter_apply)
+    from repro_torch.train import make_spectral_train_step
+    n = 64
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        plan = Croft3D((n,) * 3, problem="r2c", strategy="packed",
+                       opts=FFTOptions(local_impl="pallas"), device=dev)
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn((n,) * 3, generator=g).to(dev)
+        true = {"gate": 1 + 0.3 * torch.randn((n,) * 3, generator=g),
+                "filter": 1 + 0.3 * torch.randn(plan.spectrum_shape,
+                                                generator=g)}
+        with torch.no_grad():
+            target = spectral_filter_apply(
+                plan, {k: v.to(dev) for k, v in true.items()}, x)
+        step, _ = make_spectral_train_step(plan, lr=0.05)
+        params = init_spectral_filter_params(None, plan)
+        before = launch_counts()
+        params, _ = step(params, x, target)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        after = launch_counts()
+        out[dev.type] = ({k: v.cpu() for k, v in params.items()},
+                         {k: after.get(k, 0) - before.get(k, 0)
+                          for k in after})
+    (want, _), (got, launched) = out["cpu"], out["cuda"]
+    for k in ("fft4step", "unpack_two_for_one", "spectral_scale_full"):
+        assert launched.get(k, 0) >= 1, launched
+    for k in want:
+        assert (got[k] - want[k]).abs().max() <= 1e-5 * want[k].abs().max()

@@ -53,6 +53,10 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.configs.yi_34b",
             "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.configs.rwkv6_3b"} <= set(_port_modules())
+    assert {"repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+            "repro_torch.train.data", "repro_torch.train.train_step",
+            "repro_torch.parallel.loss",
+            "repro_torch.launch.train"} <= set(_port_modules())
 
 
 def _imported_roots(path: str) -> set:
@@ -72,6 +76,8 @@ def _imported_roots(path: str) -> set:
     "examples/quickstart_torch.py",
     "examples/spectral_solver_torch.py",
     "examples/serve_transforms_torch.py",
+    "examples/serve_lm_torch.py",
+    "examples/train_lm_torch.py",
 ])
 def test_script_imports_nothing_of_jax_or_repro(path):
     roots = _imported_roots(os.path.join(REPO, path))
