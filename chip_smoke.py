@@ -246,15 +246,44 @@ into ``build/``, then runs:
    ``CheckpointManager`` save into a temporary directory (removed
    after), a restore into a fresh state and 2 more (the losses of steps
    3-4 within rtol 1e-6);
-14. one JSON line on the kernels, the card's name and power limit, and
+14. the LM on a mesh: 4 gloo ranks on the one card, a (data 2, model
+   2) mesh from ``make_local_mesh``.  (14a) h2o-danube-3-4b at full
+   width in float32, 2 layers, global batch 2 x (1024 + 1): every rank
+   draws the seeded model and keeps its blocks (``init_train_state
+   (mesh=)``); step 0's loss within rtol 2e-4 of the meshless
+   ``make_train_step`` on the card (the parent's, from the same seeded
+   state), each rank's gradient blocks within 1e-4 * max|ref| of their
+   slices of the meshless gradient, two steps' losses within rtol
+   2e-4, each step's counted collectives and wall time; then bf16 at 4
+   layers, 5 steps at AdamW 3e-5: finite losses, the last below the
+   first, each within rtol 5e-2 of the meshless steps on the card, each
+   rank's peak, rank 0's device busy time; (14b) serving
+   the same model in bf16 at 4 layers, the whole model on every rank:
+   a 2 x 4096 ``synth_tokens`` prefill (2048 positions a rank, the
+   4096-slot ring cache 2048 slots a rank) and 32 greedy decode steps;
+   the first decode step's logits within 5e-2 * max|ref| of the
+   meshless serve from the same weights and token, and in float32 at 2
+   layers 8 decode steps within 2e-4 * max|ref|; one decode step
+   counted: only the partial-softmax combine, no collective as large as
+   a slot block; the sharded prefill's ``flash_attention`` launches;
+   (14c) the routes ``forward`` gained, the whole float32 model on
+   every rank: mixtral-8x22b at full
+   width, 1 layer, "ep" mode at capacity factor 4, and
+   recurrentgemma-9b at full width, one ``[rglru, rglru, attn]`` group
+   (RG-LRU over the sequence axis with the conv halo), each a 2 x 2048
+   prefill whose logits (every 16th position) are held within 2e-4 *
+   max|ref| of the meshless forward's on the card, with the counted
+   collectives;
+15. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
 3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, 6c, 7a,
 7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a,
 10b, 11b-11e, 12a and 12b, 10c's dispatch, each step of 13a and 13b,
-13c's card pass, 13d's runs; in 3g and 5 before each backward too) and
-read just after it.
+13c's card pass, 13d's runs, each sharded step, prefill and decode
+run of 14; in 3g and 5 before each backward too) and read just after
+it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -1474,24 +1503,26 @@ def worker_c2c(rank: int, dev, meshes) -> dict:
     return res
 
 
-def spawn_ranks(flag: str, ranks: int, *args) -> list:
+def spawn_ranks(flag: str, ranks: int, *args,
+                timeout: float = TIMEOUT_S) -> list:
     """Run this script's ``flag`` worker as ``ranks`` processes on the one
     card, joined by one gloo group whose rendezvous store this process
     hosts (bound to port 0, so no other process can take the port first;
     it outlives every rank); returns their outputs.  Fails naming every
-    rank that failed."""
+    rank that failed; kills every rank still running after ``timeout``
+    seconds."""
     import datetime
     import torch.distributed as dist
     store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
                           wait_for_workers=False,
-                          timeout=datetime.timedelta(seconds=TIMEOUT_S))
+                          timeout=datetime.timedelta(seconds=timeout))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), flag, str(r),
          str(store.port)] + [str(a) for a in args], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(ranks)]
     outs = []
     try:
-        deadline = time.time() + TIMEOUT_S
+        deadline = time.time() + timeout
         for p in procs:
             out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
             outs.append(out)
@@ -4477,6 +4508,516 @@ def phase_train(dev) -> dict:
     return dict(counts)
 
 
+# --------------------------------------------------------------------------
+# phase 14: the LM on a mesh
+# --------------------------------------------------------------------------
+
+SH_MODEL = 2              # ranks on the model axis of the (2, 2) mesh
+SH_TRAIN_LAYERS = 2       # 14a: float32 masters of 2 layers, 2.2 GB
+SH_TRAIN_SEQ = 1024       # 14a: global batch 2 x (1024 + 1)
+SH_BF16_LAYERS = 4
+# 14a's bf16 steps: at 3 the last loss is above the first in the meshless
+# port too (the seeded model's Adam jump at step 2, PERF.md §6); at 5,
+# as 13b, it is below
+SH_BF16_STEPS = TRAIN_STEPS
+SH_TRAJ_RTOL = 5e-2       # bf16 trajectories (tests/test_torch_train_steps.py)
+SH_PROMPT = 4096          # 14b: 2048 positions and 2048 slots a rank
+SH_TF_LAYERS = 2          # 14b's float32 decode check
+SH_TF_STEPS = 8
+SH_PREFILL = 2048         # 14c's prompts
+SH_CAPACITY = 4.0         # 14c: mixtral's factor, where no pair drops
+SH_STRIDE = 16            # 14c: logits held at every 16th position
+SH_LOSS_RTOL = 2e-4       # tests/test_parallel.py:96
+SH_BF16_TOL = 5e-2        # bf16 serving (tests/test_torch_lm_serve.py)
+SH_TIMEOUT_S = 600
+
+
+def _sh_coords() -> list:
+    """The (data 2, model 2) mesh's coords of every rank, row-major as
+    ``make_local_mesh`` lays them out."""
+    return [{"data": r // SH_MODEL, "model": r % SH_MODEL}
+            for r in range(RANKS)]
+
+
+def _sh_prefill_ref(dev, cfg, wdir: str, tag: str) -> None:
+    """14c's reference: the meshless prefill's logits at every
+    SH_STRIDE-th position of 2 x SH_PREFILL ``synth_tokens``, saved for
+    the ranks."""
+    import gc
+    import torch
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.models.model import logits as lm_logits
+    from repro_torch.train.data import synth_tokens
+    t0 = time.time()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    tokens = torch.from_numpy(synth_tokens(SEED, 0, BATCH, SH_PREFILL,
+                                           cfg.vocab)).to(dev)
+    caches = init_caches(cfg, BATCH, SH_PREFILL, dtype=torch.float32,
+                         device=dev)
+    with torch.no_grad():
+        hidden, _ = forward(model, cfg, tokens, mode="prefill",
+                            caches=caches, kv_block=KV_BLOCK,
+                            return_hidden=True)
+        ref = lm_logits(model, cfg, hidden[:, ::SH_STRIDE]).cpu()
+    torch.save(ref, os.path.join(wdir, f"{tag}_ref.pt"))
+    print(f"[14c] {tag}: meshless reference prefill {BATCH} x {SH_PREFILL} "
+          f"in {time.time() - t0:.1f} s", flush=True)
+    del model, caches, hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sh_refs(dev, wdir: str) -> None:
+    """The meshless references of 14a and 14c, computed on the card in
+    this process and saved for the ranks: 14a's step-0 gradient as each
+    rank's slices (with each leaf's max|ref|) and two steps' losses."""
+    import gc
+    import torch
+    from repro_torch.core.decomposition import spec_slices
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_step import value_and_grad
+    t0 = time.time()
+    cfg = _cut(ARCH, SH_TRAIN_LAYERS, "float32")
+    ocfg = OptConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=8)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, ocfg, device=dev)
+    ds = SyntheticDataset(cfg.vocab, SH_TRAIN_SEQ, BATCH, seed=SEED,
+                          device=dev)
+    model = state["params"]
+    loss, _, grads = value_and_grad(model, cfg, ds.batch_at(0),
+                                    kv_block=KV_BLOCK)
+
+    class Stub:
+        shape = {"data": RANKS // SH_MODEL, "model": SH_MODEL}
+    specs = sh.param_specs(model, Stub, sh.MeshAxes())
+    scale = {n: float(g.abs().max()) for n, g in grads.items()}
+    for r, coords in enumerate(_sh_coords()):
+        torch.save({"scale": scale, "grads": {
+            n: g[spec_slices(specs[n], g.shape, Stub.shape, coords)].cpu()
+            for n, g in grads.items()}}, os.path.join(wdir, f"grad{r}.pt"))
+    del grads
+    step = make_train_step(cfg, ocfg, None, BATCH, kv_block=KV_BLOCK)
+    losses = []
+    for i in range(2):
+        state, m = step(state, ds.batch_at(i))
+        losses.append(m["loss"].item())
+    del state, step, model, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _cut(ARCH, SH_BF16_LAYERS, "bfloat16")
+    ocfg = _sh_bf16_opt()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, ocfg, device=dev)
+    step = make_train_step(cfg, ocfg, None, BATCH, kv_block=KV_BLOCK)
+    bf16 = []
+    for i in range(SH_BF16_STEPS):
+        state, m = step(state, ds.batch_at(i))
+        bf16.append(m["loss"].item())
+    with open(os.path.join(wdir, "losses.json"), "w") as f:
+        json.dump({"step0": loss.item(), "losses": losses, "bf16": bf16}, f)
+    print(f"[14a] meshless reference on the card: step-0 loss "
+          f"{loss.item():.6f}, losses {losses}; bf16 at {SH_BF16_LAYERS} "
+          f"layers {bf16}; {time.time() - t0:.1f} s", flush=True)
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sh_prefill_ref(dev, _sh_moe_cfg(), wdir, "mixtral")
+    _sh_prefill_ref(dev, _cut(RG, 3, "float32"), wdir, "recurrentgemma")
+
+
+def _sh_bf16_opt():
+    """14a's bf16 optimizer: 13b's (AdamW TRAIN_LR, bf16 moments)."""
+    from repro_torch.train import OptConfig
+    return OptConfig(lr=TRAIN_LR, warmup_steps=2, decay_steps=10,
+                     moment_dtype="bfloat16")
+
+
+def _sh_moe_cfg():
+    """14c's mixtral: 1 layer at full width, float32, capacity factor
+    SH_CAPACITY."""
+    import dataclasses
+    cfg = _cut(MX, 1, "float32")
+    spec = cfg.stages[0].pattern[0]
+    moe = dataclasses.replace(spec.moe, capacity_factor=SH_CAPACITY)
+    return dataclasses.replace(cfg, stages=(dataclasses.replace(
+        cfg.stages[0], pattern=(dataclasses.replace(spec, moe=moe),)),))
+
+
+def _sh_train(rank, mesh, dev, fails, rec) -> None:
+    """14a on this rank."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    from repro_torch.train.data import SyntheticDataset, batch_sharding
+    from repro_torch.train.train_step import make_shard_ctx, value_and_grad
+    wdir = rec["wdir"]
+    cfg = _cut(ARCH, SH_TRAIN_LAYERS, "float32")
+    ocfg = OptConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=8)
+    t0 = time.time()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, ocfg, mesh=mesh)
+    shard = make_shard_ctx(mesh, BATCH)
+    ds = SyntheticDataset(cfg.vocab, SH_TRAIN_SEQ, BATCH, seed=SEED,
+                          device=dev, sharding=batch_sharding(
+                              shard, BATCH, ["tokens"]))
+    t_init = time.time() - t0
+    want = torch.load(os.path.join(wdir, f"grad{rank}.pt"))
+    ref = json.load(open(os.path.join(wdir, "losses.json")))
+    model = state["params"]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mesh.counting() as cnt:
+        loss, _, grads = value_and_grad(model, cfg, ds.batch_at(0),
+                                        shard=shard, kv_block=KV_BLOCK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Counter(launch_counts())
+    worst, leaf = 0.0, None
+    for n, g in grads.items():
+        e = float((g.float().cpu() - want["grads"][n]).abs().max()) \
+            / max(want["scale"][n], 1e-30)
+        if e > worst:
+            worst, leaf = e, n
+    ok_loss = abs(loss.item() - ref["step0"]) <= SH_LOSS_RTOL * abs(
+        ref["step0"])
+    rec["14a_step0"] = dict(loss=loss.item(), ref=ref["step0"],
+                            grad_err=worst, worst_leaf=leaf,
+                            collectives=cnt.collectives, wall_s=wall,
+                            init_s=t_init)
+    if not ok_loss:
+        fails.append(f"14a step-0 loss {loss.item()} vs {ref['step0']}")
+    if not worst <= GRAD_TOL:
+        fails.append(f"14a gradient block {leaf}: {worst:.3e} of max|ref|")
+    del grads, want
+    step = make_train_step(cfg, ocfg, mesh, BATCH, kv_block=KV_BLOCK)
+    losses, steps = [], []
+    for i in range(2):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh.counting() as cnt:
+            state, m = step(state, ds.batch_at(i))
+            losses.append(m["loss"].item())
+        steps.append({"wall_s": time.perf_counter() - t0,
+                      "collectives": cnt.collectives})
+        launches.update(launch_counts())
+    rec["14a_f32"] = dict(losses=losses, ref=ref["losses"], steps=steps)
+    if any(abs(a - b) > SH_LOSS_RTOL * abs(b)
+           for a, b in zip(losses, ref["losses"])):
+        fails.append(f"14a losses {losses} vs meshless {ref['losses']}")
+    del state, step, model, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 at 4 layers, SH_BF16_STEPS steps at AdamW TRAIN_LR
+    cfg = _cut(ARCH, SH_BF16_LAYERS, "bfloat16")
+    ocfg = _sh_bf16_opt()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, ocfg, mesh=mesh)
+    step = make_train_step(cfg, ocfg, mesh, BATCH, kv_block=KV_BLOCK)
+    ds = SyntheticDataset(cfg.vocab, SH_TRAIN_SEQ, BATCH, seed=SEED,
+                          device=dev, sharding=batch_sharding(
+                              shard, BATCH, ["tokens"]))
+    losses, steps = [], []
+    for i in range(SH_BF16_STEPS):
+        batch = ds.batch_at(i)
+        with mesh.counting() as cnt:
+            if rank == 0:
+                (state, m), prof = _train_step_profiled(
+                    lambda: step(state, batch), "14a", f"bf16 step {i} "
+                    "(rank 0)")
+                steps.append({k: prof[k] for k in
+                              ("wall_ms", "span_ms", "busy_ms", "ops")})
+            else:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                steps.append({"wall_ms": (time.perf_counter() - t0) * 1e3})
+            losses.append(m["loss"].item())
+        steps[-1]["collectives"] = cnt.collectives
+        launches.update(launch_counts())
+    rec["14a_bf16"] = dict(losses=losses, steps=steps,
+                           peak_gib=torch.cuda.max_memory_allocated(dev)
+                           / 2**30)
+    rec["14a_bf16"]["ref"] = ref["bf16"]
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+            and all(abs(a - b) <= SH_TRAJ_RTOL * abs(b)
+                    for a, b in zip(losses, ref["bf16"]))):
+        fails.append(f"14a bf16 losses {losses} (meshless {ref['bf16']})")
+    rec["launches"].update(launches)
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _sh_serve(rank, mesh, dev, fails, rec) -> None:
+    """14b on this rank: the whole model on every rank, the caches
+    slot-sharded."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.models.model import batch_rows
+    from repro_torch.train import (cast_to_compute, greedy_sample,
+                                   make_serve_steps)
+    from repro_torch.train.data import synth_tokens
+    from repro_torch.train.train_step import make_shard_ctx
+    rows = batch_rows(make_shard_ctx(mesh, BATCH), BATCH)
+    me = mesh.coords["model"]
+    launches = Counter()
+    for layers, dtype in ((SH_BF16_LAYERS, "bfloat16"),
+                          (SH_TF_LAYERS, "float32")):
+        cfg = _cut(ARCH, layers, dtype)
+        dt = getattr(torch, dtype)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = cast_to_compute(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev), dtype)
+        gen = SH_TF_STEPS if dtype == "float32" else GEN
+        max_len = SH_PROMPT + gen
+        prompts = synth_tokens(SEED, 0, BATCH, SH_PROMPT, cfg.vocab)
+        pre0, dec0 = make_serve_steps(cfg, BATCH, max_len,
+                                      kv_block=KV_BLOCK, device=dev)
+        pre1, dec1 = make_serve_steps(cfg, BATCH, max_len,
+                                      kv_block=KV_BLOCK, mesh=mesh)
+        c0 = init_caches(cfg, BATCH, max_len, dtype=dt, device=dev)
+        c1 = init_caches(cfg, BATCH, max_len, dtype=dt, device=dev,
+                         mesh=mesh)
+        want, _ = pre0(model, prompts, c0)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = pre1(model, prompts, c1)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        prefill_launches = launch_counts()
+        launches.update(prefill_launches)
+        tok = greedy_sample(want)[:, None]
+        errs, walls, counted = [], [], None
+        n_tf = 1 if dtype == "bfloat16" else gen
+        for i in range(gen):
+            t = SH_PROMPT + i
+            if i < n_tf:     # the meshless step fed the same token
+                want, _ = dec0(model, tok, c0, t)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mesh.counting() as cnt:
+                got, _ = dec1(model, tok[rows], c1, t)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.update(launch_counts())
+            if i == 1:
+                counted = cnt.collectives
+            if i < n_tf:
+                w = want[rows].float()
+                errs.append(float((got.float() - w).abs().max())
+                            / float(w.abs().max()))
+                tok = greedy_sample(want)[:, None]
+            else:          # greedy on the sharded logits, every rank's rows
+                mine = greedy_sample(got)[:, None].contiguous()
+                tok = mesh.gather(mine, (BATCH, 1), ("data", None))
+        slot = c1[0][0]["self"]["k"]
+        slot_bytes = slot.numel() * slot.element_size()
+        a = cfg.stages[0].pattern[0].attn
+        combine = 2 * slot.shape[0] * a.n_heads * (a.head_dim + 2) * 4
+        tol = SH_BF16_TOL if dtype == "bfloat16" else TF_TOL
+        tag = f"14b_{dtype}"
+        rec[tag] = dict(errs=errs, prefill_s=t_prefill,
+                        decode_ms=statistics.median(walls[1:]) * 1e3,
+                        counted=counted, slot_bytes=slot_bytes,
+                        slot_shape=list(slot.shape), combine_each=combine,
+                        layers=layers, prefill_launches=prefill_launches,
+                        peak_gib=torch.cuda.max_memory_allocated(dev)
+                        / 2**30)
+        if not max(errs) <= tol:
+            fails.append(f"{tag} decode logits {errs} (tol {tol})")
+        if slot.shape[1] * SH_MODEL != min(max_len, a.window or max_len) \
+                or slot.shape[1] != c1[0][0]["self"]["pos"].shape[0] // 2:
+            fails.append(f"{tag} slot block {tuple(slot.shape)}")
+        ar = (counted or {}).get("all-reduce", {})
+        if set(counted or {}) != {"all-reduce"} \
+                or ar.get("count") != layers \
+                or ar.get("bytes") != layers * combine \
+                or combine >= slot_bytes:
+            fails.append(f"{tag} decode step moved {counted} (combine "
+                         f"{combine} B a layer, slot block {slot_bytes} B)")
+        if prefill_launches.get(fa.NAME):
+            fails.append(f"{tag} sharded prefill launched flash_attention "
+                         f"{prefill_launches}")
+        del model, c0, c1, pre0, pre1, dec0, dec1
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["launches"].update(launches)
+
+
+def _sh_prefill(rank, mesh, dev, fails, rec, cfg, tag: str) -> None:
+    """14c on this rank: the sharded prefill (the whole model on every
+    rank, as in 14b) against the meshless reference's logits."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.models.model import (batch_rows, logits as lm_logits,
+                                          seq_block)
+    from repro_torch.train.data import synth_tokens
+    from repro_torch.train.train_step import make_shard_ctx
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    shard = make_shard_ctx(mesh, BATCH)
+    rows = batch_rows(shard, BATCH)
+    tokens = torch.from_numpy(synth_tokens(SEED, 0, BATCH, SH_PREFILL,
+                                           cfg.vocab)).to(dev)
+    caches = init_caches(cfg, BATCH, SH_PREFILL, dtype=torch.float32,
+                         device=dev, mesh=mesh)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), mesh.counting() as cnt:
+        hidden, _ = forward(model, cfg, tokens[rows], mode="prefill",
+                            caches=caches, kv_block=KV_BLOCK, shard=shard,
+                            return_hidden=True)
+        lo, hi = seq_block(shard, SH_PREFILL)
+        first = -lo % SH_STRIDE
+        got = lm_logits(model, cfg, hidden[:, first::SH_STRIDE], shard)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = torch.load(os.path.join(rec["wdir"], f"{tag}_ref.pt"))[rows]
+    ref = ref[:, (lo + first) // SH_STRIDE:][:, :got.shape[1]]
+    err = float((got.float().cpu() - ref).abs().max()) \
+        / float(ref.abs().max())
+    rec[f"14c_{tag}"] = dict(err=err, wall_s=wall, positions=[lo, hi],
+                             collectives=cnt.collectives,
+                             peak_gib=torch.cuda.max_memory_allocated(dev)
+                             / 2**30)
+    rec["launches"].update(launch_counts())
+    if not err <= TF_TOL:
+        fails.append(f"14c {tag} prefill logits {err:.3e} of max|ref|")
+    del model, caches, hidden, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def worker_shard(rank: int, port: int, wdir: str) -> None:
+    """Phase 14 on one of 4 gloo ranks sharing the card.  A failed check
+    is recorded and the rank goes on, so that no rank waits in a
+    collective for one that left; the checks are raised after the
+    groups are torn down."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe_sharded
+    from repro_torch.parallel import seqscan
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    join_ranks(rank, port, RANKS)
+    mesh = make_local_mesh(model=SH_MODEL, device=dev)
+    fails, rec = [], {"rank": rank, "wdir": wdir, "launches": Counter(),
+                      "mesh": mesh.shape}
+    routes = Counter()
+    for mod, name in ((moe_sharded, "moe_fwd_sharded"),
+                      (seqscan, "cp_vector_recurrence"),
+                      (seqscan, "cp_halo")):
+        def wrap(*a, _fn=getattr(mod, name), _name=name, **k):
+            routes[_name] += 1
+            return _fn(*a, **k)
+        setattr(mod, name, wrap)
+    t0 = time.time()
+    _sh_train(rank, mesh, dev, fails, rec)
+    rec["14a_s"] = time.time() - t0
+    t0 = time.time()
+    _sh_serve(rank, mesh, dev, fails, rec)
+    rec["14b_s"] = time.time() - t0
+    t0 = time.time()
+    _sh_prefill(rank, mesh, dev, fails, rec, _sh_moe_cfg(), "mixtral")
+    rec["mixtral_routes"] = dict(routes)
+    routes.clear()
+    _sh_prefill(rank, mesh, dev, fails, rec, _cut(RG, 3, "float32"),
+                "recurrentgemma")
+    rec["recurrentgemma_routes"] = dict(routes)
+    rec["14c_s"] = time.time() - t0
+    if not rec["mixtral_routes"].get("moe_fwd_sharded"):
+        fails.append(f"14c mixtral: no moe_fwd_sharded {rec}")
+    if not (rec["recurrentgemma_routes"].get("cp_vector_recurrence")
+            and rec["recurrentgemma_routes"].get("cp_halo")):
+        fails.append(f"14c recurrentgemma routes {rec}")
+    rec["fails"] = fails
+    print("SHARD " + json.dumps(rec, default=str), flush=True)
+    leave_ranks(mesh)
+    if fails:
+        raise SystemExit("FAILED: phase 14 rank "
+                         f"{rank}: " + "; ".join(fails))
+
+
+def phase_sharded(dev) -> dict:
+    """Phase 14 (module docstring); returns the launches of the sharded
+    runs."""
+    import torch
+    t_phase = time.time()
+    wdir = os.path.join(ROOT, "build", "phase14")
+    os.makedirs(wdir, exist_ok=True)
+    _sh_refs(dev, wdir)
+    t0 = time.time()
+    outs = spawn_ranks("--worker-shard", RANKS, wdir, timeout=SH_TIMEOUT_S)
+    recs = _results(outs, "SHARD", "14")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"[14] 4 gloo ranks on one card ({smi}), mesh {recs[0]['mesh']}, "
+          f"ranks ran {time.time() - t0:.1f} s", flush=True)
+    for r in recs:
+        a0, f32, b16 = r["14a_step0"], r["14a_f32"], r["14a_bf16"]
+        print(f"[14a] rank {r['rank']}: step 0 loss {a0['loss']:.6f} "
+              f"(meshless {a0['ref']:.6f}), worst gradient block "
+              f"{a0['grad_err']:.3e} of max|ref| ({a0['worst_leaf']}), "
+              f"value_and_grad {a0['wall_s']:.2f} s wall, collectives "
+              f"{a0['collectives']}; f32 losses {f32['losses']} (meshless "
+              f"{f32['ref']}), steps "
+              f"{[round(s['wall_s'], 3) for s in f32['steps']]} s wall, "
+              f"step collectives {f32['steps'][-1]['collectives']}; bf16 "
+              f"losses {b16['losses']}, peak {b16['peak_gib']:.2f} GiB",
+              flush=True)
+    print(f"[14a] rank 0 bf16 steps: {recs[0]['14a_bf16']['steps']}",
+          flush=True)
+    for r in recs:
+        for dtype in ("bfloat16", "float32"):
+            b = r[f"14b_{dtype}"]
+            print(f"[14b] rank {r['rank']} {dtype} ({b['layers']} layers): "
+                  f"decode logits err {max(b['errs']):.3e} of max|ref| "
+                  f"over {len(b['errs'])} steps, prefill {b['prefill_s']:.2f}"
+                  f" s, decode {b['decode_ms']:.1f} ms a step (median "
+                  f"wall), one step counted {b['counted']} against a slot "
+                  f"block {b['slot_shape']} of {b['slot_bytes']} B, "
+                  f"flash_attention launches in the sharded prefill "
+                  f"{b['prefill_launches'].get('flash_attention', 0)} (its "
+                  f"queries are the rank's block at its global positions, "
+                  f"attending to the gathered keys: not the kernel's "
+                  f"function, a segment attending to itself from 0), peak "
+                  f"{b['peak_gib']:.2f} GiB", flush=True)
+        for tag in ("mixtral", "recurrentgemma"):
+            c = r[f"14c_{tag}"]
+            print(f"[14c] rank {r['rank']} {tag}: prefill logits err "
+                  f"{c['err']:.3e} of max|ref| at positions {c['positions']}"
+                  f", {c['wall_s']:.2f} s wall, collectives "
+                  f"{c['collectives']}, routes {r[tag + '_routes']}, peak "
+                  f"{c['peak_gib']:.2f} GiB", flush=True)
+    launches = Counter()
+    for r in recs:
+        launches.update(r["launches"])
+    print(f"[14] launches of the sharded runs {dict(launches)}; phase 14 "
+          f"{time.time() - t_phase:.1f} s (14a {recs[0]['14a_s']:.1f}, 14b "
+          f"{recs[0]['14b_s']:.1f}, 14c {recs[0]['14c_s']:.1f})", flush=True)
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4497,14 +5038,22 @@ def main() -> int:
     timings.update(phase_real_kernels(dev))
     timings.update(phase_attention_kernel(dev))
     phase_host_overhead(dev)
-    paths = [phase_full(dev), phase_real_full(dev), *phase_distributed(),
-             phase_cell(), phase_serve(dev), phase_grad(dev), phase_tune(dev),
-             phase_service(dev)]
+    # each path's launches, by the phase function that drove it
+    paths = [("full", phase_full(dev)), ("real_full", phase_real_full(dev))]
+    paths += [(f"distributed.{i}", c)
+              for i, c in enumerate(phase_distributed())]
+    paths += [("cell", phase_cell()), ("serve", phase_serve(dev)),
+              ("grad", phase_grad(dev)), ("tune", phase_tune(dev)),
+              ("service", phase_service(dev))]
     trace_counts, trace_results = phase_trace()
     moe_counts, scan_results = phase_moe(dev)
-    paths += [trace_counts, phase_fnet(dev, trace_results), moe_counts,
-              phase_lm_archs(dev, scan_results), phase_frontends(dev),
-              phase_train(dev)]
+    paths += [("trace", trace_counts),
+              ("fnet", phase_fnet(dev, trace_results)), ("moe", moe_counts),
+              ("lm_archs", phase_lm_archs(dev, scan_results)),
+              ("frontends", phase_frontends(dev)), ("train", phase_train(dev)),
+              ("sharded", phase_sharded(dev))]
+    print("[15] launches by path: " + json.dumps(dict(paths), default=str),
+          flush=True)
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
@@ -4525,7 +5074,7 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in ported.items():
         t = timings[name]
-        launches = sum(p.get(name, 0) for p in paths)
+        launches = sum(p.get(name, 0) for _, p in paths)
         check(launches > 0, f"{name} not launched on the main path")
         kernels.append({
             "name": name, "route": "cuda",
@@ -4563,5 +5112,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--worker-service":
         worker_service(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker-shard":
+        worker_shard(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -175,6 +175,37 @@ def _stage(blk: torch.Tensor, *, fft_axis: Optional[int],
     return schedule_lib.run_stage(blk, st, sign, opts, mesh)
 
 
+class _Transpose(torch.autograd.Function):
+    """An ad-hoc K-chunked transpose (no FFT) under autograd: a
+    permutation of elements across the ranks, whose adjoint is the
+    transpose back (split and concat axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, blk, mesh, axis, split, concat, chunk, opts):
+        ctx.args = (mesh, axis, split, concat, chunk, opts)
+        return _stage(blk, fft_axis=None, comm_axis=axis, split_axis=split,
+                      concat_axis=concat, chunk_axis=chunk, sign=-1,
+                      opts=opts, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split, concat, chunk, opts = ctx.args
+        back = _stage(g.contiguous(), fft_axis=None, comm_axis=axis,
+                      split_axis=concat, concat_axis=split, chunk_axis=chunk,
+                      sign=-1, opts=opts, mesh=mesh)
+        return back, None, None, None, None, None, None
+
+
+def transpose_stage(blk: torch.Tensor, *, comm_axis, split_axis: int,
+                    concat_axis: int, chunk_axis: int, opts: FFTOptions,
+                    mesh) -> torch.Tensor:
+    """:func:`_stage` with no FFT (the all-to-all of CROFT's K-chunked
+    pipeline alone), differentiable: the MoE dispatch and the FNet
+    mixer's sequence transpose train through it."""
+    return _Transpose.apply(blk, mesh, comm_axis, split_axis, concat_axis,
+                            chunk_axis, opts)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------

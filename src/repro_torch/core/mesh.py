@@ -461,6 +461,46 @@ class Mesh:
         layout)."""
         return self.reshard(blk, shape, spec, (None,) * len(spec))
 
+    def collect(self, blk: torch.Tensor, shape: Sequence[int],
+                spec) -> Optional[torch.Tensor]:
+        """The whole array ``shape`` in host memory on global rank 0,
+        from this rank's block laid out by ``spec`` (one entry per dim);
+        None on every other rank.  One all-to-all in which the lowest
+        rank of each replica set sends its block to rank 0 and nothing
+        else moves, so no other rank holds more than its own block, and
+        rank 0 one received copy besides the array.  For checkpoints:
+        not differentiable."""
+        shape, spec = tuple(shape), tuple(spec)
+        boxes = [spec_slices(spec, shape, self.shape, c)
+                 for c in self.rank_coords()]
+        first = {}
+        for r, box in enumerate(boxes):
+            first.setdefault(tuple((b.start, b.stop) for b in box), r)
+        senders = sorted(first.values())
+        extents = [[b.stop - b.start for b in box] for box in boxes]
+        sizes = [math.prod(e) for e in extents]
+        me = dist.get_rank()
+        blk = blk.detach()
+        send_sizes = [0] * self.size
+        if me in senders:
+            send_sizes[0] = sizes[me]
+            send = blk.contiguous().reshape(-1)
+        else:
+            send = blk.new_empty(0)
+        recv_sizes = [sizes[r] if me == 0 and r in senders else 0
+                      for r in range(self.size)]
+        recv = blk.new_empty(sum(recv_sizes))
+        self._counted("all-to-all", send.numel() * send.element_size())
+        dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
+        if me != 0:
+            return None
+        out = torch.empty(shape, dtype=blk.dtype)
+        at = 0
+        for r in senders:
+            out[boxes[r]] = recv[at:at + sizes[r]].reshape(extents[r])
+            at += sizes[r]
+        return out
+
     def ppermute(self, x: torch.Tensor, axis, perm) -> torch.Tensor:
         """``jax.lax.ppermute``: ``perm`` lists (source, destination)
         index pairs along ``axis``; a rank no pair sends to gets zeros."""
@@ -470,6 +510,60 @@ class Mesh:
         recvs = [(out, s) for s, d in perm if d == me]
         self.exchange(sends, recvs, axis).wait()
         return out
+
+    # -- differentiable collectives of the sharded LM ------------------------
+    def permute(self, x: torch.Tensor, axis, perm) -> torch.Tensor:
+        """:meth:`ppermute` under autograd: the gradient goes back along
+        the inverse pairs.  Every rank of the axis must use the result
+        (its backward is a collective): a rank that receives nothing gets
+        zeros and must still consume them."""
+        return _Permute.apply(x, self, axis, tuple(perm))
+
+    def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Sum over ``axis`` (``jax.lax.psum``) into a new tensor, under
+        autograd: every rank uses the sum, so the gradient of each
+        summand is the sum of every rank's gradient of the result."""
+        return _Psum.apply(x, self, axis)
+
+    def gather_sum(self, blk: torch.Tensor, shape: Sequence[int], spec,
+                   view, reduce=None) -> torch.Tensor:
+        """This rank's block of the global array ``shape`` (trailing dims
+        of ``blk``; leading dims ride along) laid out by ``spec``,
+        re-laid out by the coarser ``view`` (each entry ``spec``'s or
+        None): an all-gather over the axes ``view`` drops, through
+        :meth:`reshard`'s all-to-all.
+
+        Its adjoint sums: the gradient of the view is all-reduced over
+        ``reduce`` (an axis, a tuple of axes, or None for none), then
+        sliced to this rank's block.  That is what a weight gathered for
+        a data-parallel step needs (each rank's gradient comes from its
+        own tokens) and what K/V gathered along a sequence axis need
+        (each rank's queries send gradient to every key).  The reshard's
+        own adjoint, which reads one replica, is right only where every
+        replica holds the same gradient (the FFT plans)."""
+        spec, view = tuple(spec), tuple(view)
+        reduce = _axis_arg(reduce)
+        if view == spec and (reduce is None or not (
+                torch.is_grad_enabled() and blk.requires_grad)):
+            return blk
+        return _GatherSum.apply(blk, self, tuple(shape), spec, view, reduce)
+
+    def block_of(self, full: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of ``full`` (trailing dims laid out by
+        ``spec``), as a view."""
+        box = spec_slices(spec, full.shape, self.shape, self.coords)
+        return full[(Ellipsis,) + box]
+
+
+def _axis_arg(axes):
+    """An axis argument of the collectives from a name, a tuple of names
+    or None: a 1-tuple is its name, an empty one None."""
+    if axes is None or isinstance(axes, str):
+        return axes
+    axes = tuple(axes)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
 
 
 def _live_groups():
@@ -492,6 +586,66 @@ class _Move(torch.autograd.Function):
         mesh, shape, src_spec, dst_spec, negate = ctx.args
         return (mesh._move(g.contiguous(), shape, dst_spec, src_spec, negate),
                 None, None, None, None, None)
+
+
+class _Permute(torch.autograd.Function):
+    """:meth:`Mesh.permute`: the adjoint of a permutation of blocks is the
+    permutation back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.args = (mesh, axis, perm)
+        return mesh.ppermute(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, perm = ctx.args
+        back = [(d, s) for s, d in perm]
+        return mesh.ppermute(g.contiguous(), axis, back), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    """:meth:`Mesh.psum`: y = sum of every rank's x, used by every rank, so
+    dL/dx = sum of every rank's dL/dy."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               axis).wait()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        return (mesh.all_reduce(g.clone(memory_format=torch.contiguous_format),
+                                axis).wait(), None, None)
+
+
+class _GatherSum(torch.autograd.Function):
+    """:meth:`Mesh.gather_sum`: the reshard to the coarser view forward;
+    backward, the sum over ``reduce`` and this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, blk, mesh, shape, spec, view, reduce):
+        ctx.args = (mesh, shape, spec, view, reduce)
+        if view == spec:
+            return blk.clone()
+        return mesh._move(blk.contiguous(), shape, spec, view)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, shape, spec, view, reduce = ctx.args
+        g = g.clone(memory_format=torch.contiguous_format)
+        if reduce is not None:
+            g = mesh.all_reduce(g, reduce).wait()
+        if view != spec:
+            sizes, coords = mesh.shape, mesh.coords
+            mine = spec_slices(spec, shape, sizes, coords)
+            held = spec_slices(view, shape, sizes, coords)
+            g = g[(Ellipsis,) + tuple(
+                slice(a.start - b.start, a.stop - b.start)
+                for a, b in zip(mine, held))]
+        return g, None, None, None, None, None
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],

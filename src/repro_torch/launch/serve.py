@@ -13,10 +13,18 @@ the service runs SPMD: rank 0 takes the requests, every rank runs the
 dispatches (over NCCL where every rank has a card of its own, else
 gloo: ranks that share a card, and on the CPU).
 
-``--arch`` selects the LM prefill + decode loop instead (meshless):
+``--arch`` selects the LM prefill + decode loop instead, meshless in a
+single process:
 
 ``python -m repro_torch.launch.serve --arch h2o-danube-3-4b --smoke
 --prompt-len 32 --gen-len 32 --batch 2``
+
+and, started as several ranks (``torchrun --nproc-per-node 4 -m
+repro_torch.launch.serve --arch ... --model-axis 2``), on the
+reference's ``make_local_mesh``: every rank holds the whole model, its
+batch block and its slots of the caches; the prompt's sequence splits
+over ``model`` in the prefill, and each decode step combines the ranks'
+partial softmaxes.  Rank 0 prints the whole batch's tokens.
 
 Weights are drawn from ``--seed`` on the device and cast once to the
 config's compute dtype; prompts come from the reference's
@@ -29,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import math
-import os
 import time
 
 import numpy as np
@@ -51,19 +58,11 @@ def _mesh_for_transforms(device=None):
     group is NCCL's where every rank has a card of its own, else gloo's
     (NCCL needs one card a rank)."""
     from repro_torch.core import make_mesh
-    from repro_torch.device import resolve_device
-    n = int(os.environ.get("WORLD_SIZE", "1"))
-    if n < 2:
+    from repro_torch.launch.mesh import join_world
+    device = join_world(device)
+    if device is None:
         return None
-    if device is None or torch.device(device).type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", "0"))
-        device = torch.device("cuda", local % torch.cuda.device_count())
-        torch.cuda.set_device(device)
-    device = resolve_device(device)
-    if not dist.is_initialized():
-        own_card = (device.type == "cuda"
-                    and torch.cuda.device_count() >= n)
-        dist.init_process_group("nccl" if own_card else "gloo")
+    n = dist.get_world_size()
     py = int(math.sqrt(n))
     while n % py:
         py -= 1
@@ -153,6 +152,7 @@ def lm_main(args) -> np.ndarray:
     (batch, gen_len)."""
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import world_mesh
     from repro_torch.models import init_caches, init_params
     from repro_torch.train import (cast_to_compute, make_serve_steps,
                                    temperature_sample)
@@ -161,7 +161,9 @@ def lm_main(args) -> np.ndarray:
     cfg = get_config(args.arch, smoke=args.smoke)
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
-    dev = resolve_device(args.device)
+    mesh = world_mesh(getattr(args, "model_axis", 0), args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or dist.get_rank() == 0
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = cast_to_compute(init_params(cfg, gen, dev), cfg.dtype)
 
@@ -169,12 +171,13 @@ def lm_main(args) -> np.ndarray:
     max_len = prefix + args.prompt_len + args.gen_len
     prefill_fn, decode_fn = make_serve_steps(cfg, args.batch, max_len,
                                              kv_block=args.kv_block,
-                                             device=dev)
+                                             device=dev, mesh=mesh)
     prompts = synth_tokens(args.seed, 0, args.batch, args.prompt_len,
                            cfg.vocab)
     enc_len = cfg.n_frontend_tokens if cfg.encoder is not None else 0
     caches = init_caches(cfg, args.batch, max_len, enc_len=enc_len,
-                         dtype=getattr(torch, cfg.dtype), device=dev)
+                         dtype=getattr(torch, cfg.dtype), device=dev,
+                         mesh=mesh)
     kwargs = {}
     rng = np.random.default_rng(args.seed)
     stub = (args.batch, cfg.n_frontend_tokens, cfg.d_model)
@@ -200,13 +203,27 @@ def lm_main(args) -> np.ndarray:
     _sync(dev)
     t_decode = time.monotonic() - t0
 
-    gen = torch.cat(out, dim=1).cpu().numpy()
+    gen = torch.cat(out, dim=1)
+    if mesh is not None:      # every rank's batch block, in batch order
+        from repro_torch.train.train_step import make_shard_ctx
+        dp = make_shard_ctx(mesh, args.batch).dp
+        if dp is not None:
+            gen = mesh.gather(gen.contiguous(), (args.batch, gen.shape[1]),
+                              (dp, None))
+    gen = gen.cpu().numpy()
     tps = args.batch * (args.gen_len - 1) / max(t_decode, 1e-9)
-    print(f"device: {dev}  model: {cfg.name} ({cfg.dtype})")
-    print(f"prefill: {t_prefill:.3f}s for {args.batch}x{args.prompt_len} tok")
-    print(f"decode : {t_decode:.3f}s for {args.gen_len-1} steps "
-          f"({tps:.1f} tok/s)")
-    print(f"sample generations (first 16 ids):\n{gen[:, :16]}")
+    if lead:
+        print(f"device: {dev}  model: {cfg.name} ({cfg.dtype})"
+              + (f"  mesh: {mesh.shape}" if mesh is not None else ""))
+        print(f"prefill: {t_prefill:.3f}s for {args.batch}x"
+              f"{args.prompt_len} tok")
+        print(f"decode : {t_decode:.3f}s for {args.gen_len-1} steps "
+              f"({tps:.1f} tok/s)")
+        print(f"sample generations (first 16 ids):\n{gen[:, :16]}")
+    if mesh is not None:
+        dist.barrier()
+        mesh.close()
+        dist.destroy_process_group()
     return gen
 
 
@@ -240,6 +257,9 @@ def main(argv=None):
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--kv-block", type=int, default=512)
+    ap.add_argument("--model-axis", type=int, default=0,
+                    help="LM mode under torchrun: ranks on the mesh's "
+                         "model axis (0: make_local_mesh's rule)")
     args = ap.parse_args(argv)
     if args.arch:
         return lm_main(args)

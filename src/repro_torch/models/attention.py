@@ -22,8 +22,19 @@ differentiates the blockwise core.  The route depends on the shapes and
 the grad state alone, so the CPU takes the route the card takes.  MLA
 always runs the blockwise core, as the reference does: its head dims
 (576/512 absorbed, 192/128 decompressed) are past the kernel's
-``D_MAX``.  The sharding hints of the reference (``kv_spec``,
-``kv_local_spec``) have no counterpart: the port is meshless.
+``D_MAX``.
+
+Distribution (the reference's ``kv_spec``/``kv_local_spec`` hints): on
+a mesh the query sequence is split over the context-parallel axis, and
+K/V (MLA: the joint latent) are projected from the rank's block, then
+gathered along it (``kv_gather``, with the gradient summed back,
+``core.mesh.Mesh.gather_sum``); the split queries at their global
+positions never take the kernel (its function is a segment attending to
+itself from position 0).  At decode time the cache stays slot-sharded:
+each rank attends over its slots and keeps the online softmax's
+(max, sum, acc), and the ranks of the ``tp`` axis combine these in
+float32 in rank order (``combine``; the reference's GSPMD
+flash-decoding).  The cache is never gathered.
 """
 
 from __future__ import annotations
@@ -141,9 +152,34 @@ def _block_step(qg, kj, vj, mask, m, l, acc):
     return m_new, l, acc
 
 
+def combine_partials(m, l, acc, mesh, axis) -> tuple:
+    """The online softmax's carry (m, l, acc) over every rank's keys of
+    ``axis``: the ranks' float32 partials are exchanged with one counted
+    all-reduce (each rank's in its own row of a zeroed buffer) and merged
+    in rank order, the same on every rank."""
+    n, me = mesh.axis_size(axis), mesh.axis_index(axis)
+    parts = [m.reshape(-1), l.reshape(-1), acc.reshape(-1)]
+    sizes = [t.numel() for t in parts]
+    buf = torch.zeros(n, sum(sizes), dtype=torch.float32, device=m.device)
+    buf[me] = torch.cat(parts)
+    buf = mesh.all_reduce(buf, axis).wait()
+    ms_, ls_, accs = buf.split(sizes, dim=1)
+    ms_ = ms_.reshape(n, *m.shape)
+    ls_ = ls_.reshape(n, *l.shape)
+    accs = accs.reshape(n, *acc.shape)
+    m_all = ms_.amax(0)
+    l_all = torch.zeros_like(l)
+    acc_all = torch.zeros_like(acc)
+    for r in range(n):
+        w = torch.exp(ms_[r] - m_all)
+        l_all = l_all + ls_[r] * w
+        acc_all = acc_all + accs[r] * w[..., None]
+    return m_all, l_all, acc_all
+
+
 def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
-                        kv_block: int = 1024,
-                        remat_step: bool = True) -> torch.Tensor:
+                        kv_block: int = 1024, remat_step: bool = True,
+                        combine=None) -> torch.Tensor:
     """q (B,Sq,H,hd) · k,v (B,Sk,KV,hd) -> (B,Sq,H,hd_v) in float32.
 
     Online softmax over kv blocks (peak score memory O(Sq * kv_block)),
@@ -157,6 +193,10 @@ def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
     backward recomputes the (Sq x blk) probabilities instead of keeping
     them as float32 residuals (the reference's ``jax.checkpoint`` of its
     scan step, the flash-backward memory trade).
+
+    ``combine`` = (mesh, axis): k/v are this rank's slots of keys spread
+    over ``axis``; the carry is merged over it (:func:`combine_partials`)
+    before the normalisation.  No gradient is taken through it.
     """
     b, sq, h, hd = q.shape
     _, sk, kv_heads, hd_v = v.shape
@@ -178,6 +218,8 @@ def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
             m, l, acc = checkpoint(_block_step, *args, use_reentrant=False)
         else:
             m, l, acc = _block_step(*args)
+    if combine is not None:
+        m, l, acc = combine_partials(m, l, acc, *combine)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, sq, h, hd_v)
 
@@ -191,6 +233,12 @@ def blockwise_attention(q, k, v, ms: MaskSpec, q_pos, k_pos, *,
 #   kv = (k_buf,v_buf): attend over the provided buffers (decode cache with
 #                       the current token already written; MLA: the latent
 #                       buffer); new_kv echoes them back
+#   kv_gather         : with kv None, the gather of the projected K/V (MLA:
+#                       the latent) along the context-parallel axis; k_pos
+#                       then gives the gathered keys' positions, and new_kv
+#                       is the gathered (k, v)
+#   combine           : (mesh, axis) merging the partial softmaxes of a
+#                       slot-sharded cache (blockwise_attention)
 # --------------------------------------------------------------------------
 
 def gqa_project_kv(p: GQA, x, a: AttentionSpec, positions):
@@ -205,7 +253,8 @@ def gqa_project_kv(p: GQA, x, a: AttentionSpec, positions):
 
 
 def gqa_fwd(p: GQA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
-            k_pos=None, *, start=None, kv_block: int = 1024):
+            k_pos=None, *, start=None, kv_block: int = 1024,
+            kv_gather=None, combine=None):
     """``start``: the Python int position of ``x[:, 0]`` when the caller
     knows it (``Ctx.start``); a segment at 0 attends through the kernel."""
     dt = x.dtype
@@ -215,12 +264,15 @@ def gqa_fwd(p: GQA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
         q = apply_rope(q, cos, sin)
     if kv is None:
         k, v = gqa_project_kv(p, x, a, q_pos)
-        k_pos = q_pos
+        if kv_gather is None:
+            k_pos = q_pos
+        else:   # one gather for both
+            k, v = kv_gather(torch.stack([k, v], dim=2)).unbind(2)
     else:
         k, v = kv
     scale = a.scale or a.head_dim ** -0.5
-    if kv is None and type(start) is int and start == 0 \
-            and ms.prefix_len == 0 and q.shape[-1] <= D_MAX \
+    if kv is None and kv_gather is None and type(start) is int \
+            and start == 0 and ms.prefix_len == 0 and q.shape[-1] <= D_MAX \
             and v.shape[-1] <= D_MAX and not takes_grad(q, k, v):
         # positions 0..S-1 on both sides, head dims the kernel takes, no
         # gradient through it: the flash-attention kernel's case
@@ -229,7 +281,7 @@ def gqa_fwd(p: GQA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
                             window=ms.window, scale=1.0)
     else:
         o = blockwise_attention(q * scale, k, v, ms, q_pos, k_pos,
-                                kv_block=kv_block)
+                                kv_block=kv_block, combine=combine)
     y = torch.einsum("bshk,hkd->bsd", o.to(dt), p.wo.to(dt))
     return y, (k, v)
 
@@ -240,7 +292,8 @@ def mla_project_latent(p: MLA, x, a: AttentionSpec):
 
 
 def mla_fwd(p: MLA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
-            k_pos=None, *, kv_block: int = 1024, absorbed=None):
+            k_pos=None, *, kv_block: int = 1024, absorbed=None,
+            kv_gather=None, combine=None):
     """DeepSeek-V2 MLA.  Cache = joint latent (B, S, kv_lora+rope); k_rope
     is rotated at read time from the absolute k positions, so the cached
     latent is position-free (empty slots at -1 stay finite and are
@@ -267,7 +320,10 @@ def mla_fwd(p: MLA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
                                                     a.rope_theta))
     if kv is None:
         latent = mla_project_latent(p, x, a)
-        k_pos = q_pos
+        if kv_gather is None:
+            k_pos = q_pos
+        else:
+            latent = kv_gather(latent)
     else:
         latent = kv
     c_kv = latent[..., :rank]
@@ -282,7 +338,7 @@ def mla_fwd(p: MLA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
         k_full = torch.cat([c_kv[..., None, :], k_rope], dim=-1)
         o_lat = blockwise_attention(q_full * scale, k_full,
                                     c_kv[..., None, :], ms, q_pos, k_pos,
-                                    kv_block=kv_block)
+                                    kv_block=kv_block, combine=combine)
         # output side: o[h] = o_lat[h] @ W_uv[:, h, :]
         o = torch.einsum("bshr,rhv->bshv", o_lat.to(dt), p.w_uv.to(dt))
     else:
@@ -292,14 +348,16 @@ def mla_fwd(p: MLA, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
                                              a.qk_rope_dim)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         o = blockwise_attention(q_full * scale, k, v, ms, q_pos, k_pos,
-                                kv_block=kv_block)
+                                kv_block=kv_block, combine=combine)
     y = torch.einsum("bshk,hkd->bsd", o.to(dt), p.wo.to(dt))
     return y, latent
 
 
 def attention_fwd(p, x, a: AttentionSpec, ms: MaskSpec, q_pos, kv=None,
-                  k_pos=None, *, start=None, kv_block: int = 1024):
+                  k_pos=None, *, start=None, kv_block: int = 1024,
+                  kv_gather=None, combine=None):
     if a.kind == "mla":
-        return mla_fwd(p, x, a, ms, q_pos, kv, k_pos, kv_block=kv_block)
+        return mla_fwd(p, x, a, ms, q_pos, kv, k_pos, kv_block=kv_block,
+                       kv_gather=kv_gather, combine=combine)
     return gqa_fwd(p, x, a, ms, q_pos, kv, k_pos, start=start,
-                   kv_block=kv_block)
+                   kv_block=kv_block, kv_gather=kv_gather, combine=combine)

@@ -14,6 +14,14 @@ arange(enc_len)``; the prefill writes it in place, decode reads it.
 The reference returns new arrays; :func:`write_attn_cache` and
 :func:`write_latent_cache` write into the cache's tensors in place (the
 cache is the largest state of a decode step) and return the same dict.
+
+Layout contract (the reference's DESIGN.md §4): on a mesh the slot axis
+is sharded over the ``model`` axis and the batch over ``data``
+(``models.init_caches(mesh=)``).  A rank's cache then holds slots
+[first, first + k.shape[1]) of ``pos.shape[0]``, and ``pos`` whole; the
+writes take ``first`` and touch only the rank's slots (and ``pos``): a
+decode token lands on the one rank that holds its slot, and a prefill
+writes each rank's slots from the whole segment's K/V.
 """
 
 from __future__ import annotations
@@ -90,8 +98,31 @@ def init_layer_cache(spec: LayerSpec, batch: int, max_len: int, dtype,
     return cache
 
 
+def _write_slots(cache: dict, news: dict, start: int, first: int) -> dict:
+    """A segment at global positions [start, start + S) into a
+    slot-sharded cache (slot = pos % slots): each tensor of ``news``
+    (B, S, ...) into the rank's slots [first, first + local) of the
+    cache's tensor of that name, and every slot's position into the
+    whole ``pos``.  The indices are made on the host (no wait on the
+    card)."""
+    n_slots = cache["pos"].shape[0]
+    local = next(iter(news.values()))
+    s_new = local.shape[1]
+    positions = torch.arange(start, start + s_new)
+    slots = positions % n_slots
+    dev = cache["pos"].device
+    cache["pos"][slots.to(dev)] = positions.to(dev, torch.int32)
+    n_local = cache[next(iter(news))].shape[1]
+    sel = torch.nonzero((slots >= first) & (slots < first + n_local))[:, 0]
+    if sel.numel():
+        dst, src = (slots[sel] - first).to(dev), sel.to(dev)
+        for name, new in news.items():
+            cache[name][:, dst] = new[:, src].to(cache[name].dtype)
+    return cache
+
+
 def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                     start: int) -> dict:
+                     start: int, first: int = 0) -> dict:
     """Insert a segment of S_new tokens at global positions
     [start, start+S_new), in place.
 
@@ -99,17 +130,24 @@ def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     for segments longer than W only the last W entries land (their slots
     form exactly one wrap-around window).  A shorter multi-token segment
     must not wrap (the reference's clamped update would misplace it).
+    ``first``: the global index of the rank's first slot when the cache
+    is slot-sharded (its slot dim shorter than ``pos``).
     """
-    n_slots = cache["k"].shape[1]
+    n_slots = cache["pos"].shape[0]
     s_new = k_new.shape[1]
     if s_new > n_slots:  # only the trailing window survives
         k_new = k_new[:, -n_slots:]
         v_new = v_new[:, -n_slots:]
         start = start + (s_new - n_slots)
         s_new = n_slots
+    slot0 = start % n_slots
+    if 1 < s_new < n_slots and slot0 + s_new > n_slots:
+        raise ValueError(f"a {s_new}-token segment at position {start} wraps "
+                         f"the {n_slots}-slot cache")
+    if cache["k"].shape[1] < n_slots:
+        return _write_slots(cache, {"k": k_new, "v": v_new}, start, first)
     positions = start + torch.arange(s_new, dtype=torch.int32,
                                      device=cache["pos"].device)
-    slot0 = start % n_slots
     if s_new == n_slots:
         # rotate the segment so slot i holds the entry with pos % W == i
         cache["k"].copy_(torch.roll(k_new, slot0, dims=1))
@@ -122,9 +160,6 @@ def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         cache["pos"][slot0] = start
         return cache
     # non-wrapping multi-token segment (prefill shorter than the window)
-    if slot0 + s_new > n_slots:
-        raise ValueError(f"a {s_new}-token segment at position {start} wraps "
-                         f"the {n_slots}-slot cache")
     cache["k"][:, slot0:slot0 + s_new] = k_new
     cache["v"][:, slot0:slot0 + s_new] = v_new
     cache["pos"][slot0:slot0 + s_new] = positions
@@ -132,21 +167,23 @@ def write_attn_cache(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def write_latent_cache(cache: dict, latent_new: torch.Tensor,
-                       start: int) -> dict:
+                       start: int, first: int = 0) -> dict:
     """Insert a segment of MLA latents at global positions
     [start, start+S_new), in place: one slot for a decode token (slot =
     pos % slots), a run of slots for a prefill segment, which must not
-    wrap."""
-    n_slots = cache["latent"].shape[1]
+    wrap.  ``first``: as in :func:`write_attn_cache`."""
+    n_slots = cache["pos"].shape[0]
     s_new = latent_new.shape[1]
     slot0 = start % n_slots
+    if s_new > 1 and slot0 + s_new > n_slots:
+        raise ValueError(f"a {s_new}-token segment at position {start} wraps "
+                         f"the {n_slots}-slot latent cache")
+    if cache["latent"].shape[1] < n_slots:
+        return _write_slots(cache, {"latent": latent_new}, start, first)
     if s_new == 1:  # decode
         cache["latent"][:, slot0] = latent_new[:, 0]
         cache["pos"][slot0] = start
         return cache
-    if slot0 + s_new > n_slots:
-        raise ValueError(f"a {s_new}-token segment at position {start} wraps "
-                         f"the {n_slots}-slot latent cache")
     cache["latent"][:, slot0:slot0 + s_new] = latent_new
     cache["pos"][slot0:slot0 + s_new] = start + torch.arange(
         s_new, dtype=torch.int32, device=cache["pos"].device)

@@ -127,13 +127,32 @@ def moe_fwd(p: MoE, x: torch.Tensor, m: MoESpec) -> torch.Tensor:
     return out.reshape(b, s, d)
 
 
-def aux_load_balance_loss(p: MoE, x: torch.Tensor, m: MoESpec):
-    """Switch-style load-balance auxiliary loss (fraction * probability)."""
+def aux_load_balance_loss(p: MoE, x: torch.Tensor, m: MoESpec, mesh=None,
+                          axes=()):
+    """Switch-style load-balance auxiliary loss (fraction * probability).
+
+    On a ``mesh``, x is this rank's block of tokens and ``axes`` the axes
+    whose ranks hold the other blocks: the hits and the probability sums
+    are all-reduced over them (one counted all-reduce), so the value is
+    the whole pass's; its gradient is this rank's share (through its own
+    tokens' probabilities), and the shares sum to the whole's."""
     xt = x.reshape(-1, x.shape[-1]).float()
     probs = torch.softmax(xt @ p.router.float(), -1)
     _, topk_idx = torch.topk(probs, m.top_k, dim=-1)
     hits = torch.bincount(topk_idx.reshape(-1),
                           minlength=m.n_experts).float()
+    psum = probs.sum(0)
+    n_tok = torch.tensor([float(xt.shape[0])], device=x.device)
+    if mesh is not None and axes:
+        from repro_torch.core.mesh import _axis_arg
+        tot = mesh.all_reduce(torch.cat([hits, psum.detach(), n_tok]),
+                              _axis_arg(axes)).wait()
+        e = m.n_experts
+        hits, n_tok = tot[:e], tot[-1:]
+        frac_tokens = hits / hits.sum()
+        local = m.n_experts * (frac_tokens * psum / n_tok).sum()
+        whole = m.n_experts * (frac_tokens * tot[e:2 * e] / n_tok).sum()
+        return local + (whole - local).detach()
     frac_tokens = hits / hits.sum()
     frac_prob = probs.mean(0)
     return m.n_experts * (frac_tokens * frac_prob).sum()

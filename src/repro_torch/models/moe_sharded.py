@@ -19,9 +19,11 @@ runs :func:`moe_fwd_sharded` on its own block, as
       only collective is the all-reduce of the combined output.
 
 Both modes keep the router numerics of ``moe.moe_fwd``.  The weights a
-rank needs are its block of the full ``MoE`` (:func:`shard_moe`).  Wiring
-this into ``model.forward`` waits for the sharded model (``ShardCtx``,
-``ROADMAP.md`` queue 1 item 8).
+rank needs are its block of the full ``MoE`` (:func:`shard_moe`); on a
+mesh ``models.model.forward`` routes MoE layers here outside decode and
+hands each rank its experts' (or ffn columns') block of the layer's
+weights.  Both modes are differentiable: the transposes' adjoints are
+the transposes back, the all-reduce's is the all-reduce.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.distributed import FFTOptions, _stage
+from repro_torch.core.distributed import FFTOptions, transpose_stage
 from repro_torch.models.config import MoESpec
 from repro_torch.models.layers import ffn_fwd
 from repro_torch.models.moe import (MoE, _capacity, _combine, _dispatch,
@@ -99,20 +101,19 @@ def moe_fwd_sharded(p: MoE, x: torch.Tensor, m: MoESpec, *, mesh,
         # CROFT transpose: expert dim scattered out, capacity gathered,
         # (E, C, D) -> (E/tp, C*tp, D), K chunks on D for the overlap
         opts = FFTOptions(overlap_k=overlap_k)
-        buf = _stage(buf, fft_axis=None, comm_axis=tp_axis, split_axis=0,
-                     concat_axis=1, chunk_axis=2, sign=-1, opts=opts,
-                     mesh=mesh)
+        buf = transpose_stage(buf, comm_axis=tp_axis, split_axis=0,
+                              concat_axis=1, chunk_axis=2, opts=opts,
+                              mesh=mesh)
         y = _experts(buf, p.w_gate, p.w_up, p.w_down)
-        y = _stage(y, fft_axis=None, comm_axis=tp_axis, split_axis=1,
-                   concat_axis=0, chunk_axis=2, sign=-1, opts=opts,
-                   mesh=mesh)
+        y = transpose_stage(y, comm_axis=tp_axis, split_axis=1,
+                            concat_axis=0, chunk_axis=2, opts=opts,
+                            mesh=mesh)
         out = _combine(y, meta, t, d, x.dtype)
     else:
         y = _experts(buf, p.w_gate, p.w_up, p.w_down)
         # the combine is linear in y: all-reduce after it, so the wire
         # carries (T, D) tokens, not the k*capacity-padded buffer
-        out = mesh.all_reduce(_combine(y, meta, t, d, x.dtype),
-                              tp_axis).wait()
+        out = mesh.psum(_combine(y, meta, t, d, x.dtype), tp_axis)
     if m.n_shared:
         out = out + ffn_fwd(p.shared, xt, "swiglu")
     return out.reshape(bb, ss, d)

@@ -187,15 +187,24 @@ def rglru_fwd(p: RGLRU, x, r: RecurrentSpec, state: Optional[RGLRUState],
     """Griffin recurrent block: x (B,T,D) -> (B,T,D), new state.
 
     ``cp`` = (mesh, cp_axis, batch_spec): run the scan sequence-parallel
-    (:mod:`repro_torch.parallel.seqscan`) on this rank's block of T."""
+    (:mod:`repro_torch.parallel.seqscan`) on this rank's block of T (at
+    least ``conv_width - 1`` long); the conv reads the previous rank's
+    last ``conv_width - 1`` inputs (rank 0: the state's), and the new
+    state is the last rank's, on every rank."""
     dt = x.dtype
     ds = p.w_in.shape[1]
     bsz = x.shape[0]
-    if state is None:
+    fresh = state is None
+    if fresh:
         state = rglru_init_state(bsz, ds, r.conv_width, dt, x.device)
     gate = F.gelu(x @ p.w_gate.to(dt), approximate="tanh")
     xi = x @ p.w_in.to(dt)
-    xc = _causal_conv(xi, p.conv_w, state.conv)
+    prev = state.conv
+    if cp is not None:
+        from repro_torch.parallel.seqscan import cp_halo
+        prev = cp_halo(xi, cp[0], cp[1], r.conv_width - 1,
+                       None if fresh else state.conv)
+    xc = _causal_conv(xi, p.conv_w, prev)
     # RG-LRU gates (fp32 for the decay math)
     xf = xc.float()
     rg = torch.sigmoid(xf @ p.w_rg.float() + p.b_rg)
@@ -214,8 +223,10 @@ def rglru_fwd(p: RGLRU, x, r: RecurrentSpec, state: Optional[RGLRUState],
                                          batch_spec=batch_spec, chunk=step)
     else:
         h, h_last = vector_recurrence(log_a, b, state.h, step)
-    new_conv = torch.cat([state.conv.to(dt), xi],
-                         dim=1)[:, -(r.conv_width - 1):]
+    new_conv = torch.cat([prev.to(dt), xi], dim=1)[:, -(r.conv_width - 1):]
+    if cp is not None:
+        from repro_torch.parallel.seqscan import from_last_rank
+        new_conv = from_last_rank(new_conv, cp[0], cp[1])
     y = (h.to(dt) * gate) @ p.w_out.to(dt)
     return y, RGLRUState(h=h_last, conv=new_conv)
 
@@ -286,15 +297,23 @@ def rwkv6_fwd(p: RWKV6, x, r: RecurrentSpec, state: Optional[RWKVState],
     """RWKV-6 time mix: x (B,T,D) -> (B,T,D), new state.
 
     ``cp`` = (mesh, cp_axis, batch_spec) runs the sequence-parallel scan
-    on this rank's block of T."""
+    on this rank's block of T; the token shift reads the previous rank's
+    last input (rank 0: the state's), and the new state is the last
+    rank's, on every rank."""
     dt = x.dtype
     bsz, t, d = x.shape
     n_heads = _rwkv_heads(d, r)
     dk = d // n_heads
-    if state is None:
+    fresh = state is None
+    if fresh:
         state = rwkv6_init_state(bsz, d, n_heads, dt, x.device)
+    prev = state.x_prev
+    if cp is not None:
+        from repro_torch.parallel.seqscan import cp_halo
+        prev = cp_halo(x, cp[0], cp[1], 1,
+                       None if fresh else state.x_prev[:, None])[:, 0]
 
-    xx = token_shift(x, state.x_prev)
+    xx = token_shift(x, prev)
     # data-dependent token-shift mixing (5-way LoRA)
     base = x + (xx - x) * p.mu_base.to(dt)
     z = torch.tanh(base @ p.lora_a.to(dt)).reshape(bsz, t, 5, RWKV_LORA)
@@ -326,4 +345,8 @@ def rwkv6_fwd(p: RWKV6, x, r: RecurrentSpec, state: Optional[RWKVState],
     var = o.square().mean(-1, keepdim=True)
     o = o * torch.rsqrt(var + 1e-6) * p.ln_scale[None, None]
     y = (o.reshape(bsz, t, d).to(dt) * g) @ p.w_o.to(dt)
-    return y, RWKVState(s=s_last, x_prev=x[:, -1].to(dt))
+    x_last = x[:, -1].to(dt)
+    if cp is not None:
+        from repro_torch.parallel.seqscan import from_last_rank
+        x_last = from_last_rank(x_last, cp[0], cp[1])
+    return y, RWKVState(s=s_last, x_prev=x_last)

@@ -8,7 +8,8 @@ The model-dim FFT is always local.  The sequence-dim FFT, when the sequence
 axis is sharded over a mesh axis (context parallelism), runs the paper's
 transpose pattern: all-to-all the hidden axis out / sequence axis in,
 local FFT, all-to-all back: one round of CROFT's pencil machinery with the
-same K-chunked overlap knob.  Both FFTs are ``local_fft.fft_matmul``, DFT
+same K-chunked overlap knob (differentiable: a training pass on a mesh
+runs it).  Both FFTs are ``local_fft.fft_matmul``, DFT
 products as in the reference (no Pallas kernel there, so none here).
 """
 
@@ -19,8 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import local_fft
-from repro_torch.core.distributed import FFTOptions
-from repro_torch.core.distributed import _stage  # K-chunked (fft -> all_to_all)
+from repro_torch.core.distributed import FFTOptions, transpose_stage
 
 
 def _fft_last(x: torch.Tensor) -> torch.Tensor:
@@ -58,11 +58,11 @@ def distributed_seq_fft(xc: torch.Tensor, axis_name: str, mesh, batch_spec,
     """
     del batch_spec
     opts = FFTOptions(overlap_k=overlap_k)
-    blk = _stage(xc, fft_axis=None, comm_axis=axis_name, split_axis=2,
-                 concat_axis=1, chunk_axis=0, sign=-1, opts=opts, mesh=mesh)
+    blk = transpose_stage(xc, comm_axis=axis_name, split_axis=2,
+                          concat_axis=1, chunk_axis=0, opts=opts, mesh=mesh)
     blk = _fft_last(blk.movedim(1, -1)).movedim(-1, 1)
-    return _stage(blk, fft_axis=None, comm_axis=axis_name, split_axis=1,
-                  concat_axis=2, chunk_axis=0, sign=-1, opts=opts, mesh=mesh)
+    return transpose_stage(blk, comm_axis=axis_name, split_axis=1,
+                           concat_axis=2, chunk_axis=0, opts=opts, mesh=mesh)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Training/serving substrate: optimizer, steps, data, checkpoints, fault
-tolerance (port of ``repro/train``, meshless)."""
+tolerance (port of ``repro/train``, meshless or on a mesh)."""
 
 from repro_torch.train.optimizer import OptConfig, adamw_update, init_opt_state
 from repro_torch.train.train_step import (cast_to_compute, greedy_sample,

@@ -16,6 +16,16 @@ A tree is nested dicts, lists and tuples of tensors or numpy arrays; an
 :meth:`CheckpointManager.save` copies every leaf to the host before it
 returns (the train step then updates the state in place); with a process
 group only rank 0 writes.
+
+A sharded state (a Model that holds this rank's blocks, with its
+``layout``, and moments of the same blocks) is saved with logical shapes
+only: every rank calls ``save``, and each leaf keyed by a parameter name
+of the layout is collected whole into rank 0's host memory, one leaf at
+a time (``core.mesh.Mesh.collect``, a collective), so no other rank
+ever holds more than its blocks; rank 0 writes the reference's format.  ``restore(template, shardings=)`` (per-rank slices
+by key, ``parallel.sharding.param_shardings``) places each stored array
+onto the template's mesh, whatever mesh wrote it: the reference's
+elastic contract.
 """
 
 from __future__ import annotations
@@ -89,6 +99,43 @@ def _rank0() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def _layout_of(tree):
+    """The layout of the first Model in ``tree`` that holds blocks."""
+    if isinstance(tree, nn.Module):
+        return getattr(tree, "layout", None)
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            got = _layout_of(v)
+            if got is not None:
+                return got
+    return None
+
+
+def _whole(key: str, t, layout):
+    """A leaf as the checkpoint stores it, on rank 0 (None elsewhere): a
+    block of a parameter of ``layout`` (its key's last part names it)
+    collected whole onto rank 0's host, any other leaf as it is."""
+    name = key.rsplit("/", 1)[-1]
+    if layout is None or name not in layout.specs \
+            or not isinstance(t, torch.Tensor) \
+            or all(e is None for e in layout.specs[name]):
+        return t if _rank0() else None
+    return layout.mesh.collect(t, layout.shapes[name], layout.specs[name])
+
+
+def _flat_shardings(tree, prefix: str = "") -> dict:
+    """{key: tuple of slices} of a shardings tree (dicts of per-rank
+    slice tuples, or None)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_shardings(v, f"{prefix}{k}/"))
+        return out
+    return {} if tree is None else {prefix[:-1]: tuple(tree)}
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3,
                  async_write: bool = True):
@@ -100,12 +147,22 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, block: bool = False):
+        """Write ``tree`` as step ``step`` (on a background thread unless
+        ``block``).  When a Model in ``tree`` holds blocks, each leaf keyed
+        by one of its parameter names (its masters and moments) is saved
+        whole, and then every rank must call ``save``."""
+        if _rank0():
+            self.wait()  # one in-flight write at a time
+        layout = _layout_of(tree)
+        host = {}
+        for k, v in _flatten(tree).items():   # device -> host, leaf by leaf
+            v = _whole(k, v, layout)
+            if v is not None:
+                host[k] = tensor_to_numpy(
+                    v if isinstance(v, torch.Tensor)
+                    else tensor_from_numpy(np.asarray(v)))
         if not _rank0():
             return
-        self.wait()  # one in-flight write at a time
-        host = {k: tensor_to_numpy(v if isinstance(v, torch.Tensor)
-                                   else tensor_from_numpy(np.asarray(v)))
-                for k, v in _flatten(tree).items()}  # device -> host copy
 
         def _write():
             tmp = os.path.join(self.dir, f".tmp-step_{step}")
@@ -155,11 +212,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def _load(self, d: str, manifest: dict, key: str, like, step: int):
+    def _load(self, d: str, manifest: dict, key: str, like, step: int,
+              box=None):
         info = manifest["leaves"].get(key)
         if info is None:
             raise KeyError(f"checkpoint step_{step} missing leaf {key}")
-        arr = np.load(os.path.join(d, info["file"]))
+        arr = np.load(os.path.join(d, info["file"]),
+                      mmap_mode=None if box is None else "r")
+        if box is not None:
+            arr = np.ascontiguousarray(arr[box])
         expect = tuple(like.shape)
         if tuple(arr.shape) != expect:
             raise ValueError(
@@ -169,12 +230,20 @@ class CheckpointManager:
                                      info["dtype"])
         return arr
 
-    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``template``: each leaf on the
         template leaf's device in the stored dtype (a numpy leaf stays
         numpy unless it was stored as bf16/fp8), its shape checked.  An
         ``nn.Module`` in the template takes its values in place and is
-        returned itself."""
+        returned itself.
+
+        ``shardings``: a tree of this rank's slices (tuples) by key, as
+        ``template`` (e.g. ``{"params": param_shardings(model, mesh,
+        axes), "opt": {"m": ..., "v": ..., "step": None}}``); a leaf it
+        names takes its slice of the stored array, so a checkpoint written
+        on one mesh restores onto any other."""
+        boxes = _flat_shardings(shardings)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -188,7 +257,7 @@ class CheckpointManager:
                 with torch.no_grad():
                     for name, t in node.state_dict(keep_vars=True).items():
                         t.copy_(self._load(d, manifest, prefix + name, t,
-                                           step))
+                                           step, boxes.get(prefix + name)))
                 return node
             if isinstance(node, dict):
                 return {k: rebuild(v, f"{prefix}{k}/")
@@ -196,6 +265,7 @@ class CheckpointManager:
             if isinstance(node, (list, tuple)):
                 return type(node)(rebuild(v, f"{prefix}{i}/")
                                   for i, v in enumerate(node))
-            return self._load(d, manifest, prefix[:-1], node, step)
+            return self._load(d, manifest, prefix[:-1], node, step,
+                              boxes.get(prefix[:-1]))
 
         return rebuild(template, "")

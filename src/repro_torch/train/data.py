@@ -7,9 +7,11 @@ state, so any host can regenerate any step, and restarts replay
 identically.  The distribution is Zipf-ish over the vocab with a
 second-order blend, so models have something to learn.
 
-``SyntheticDataset`` puts each batch on ``device`` (the reference's
-``sharding``): from pinned host memory by a non-blocking copy when the
-device is a CUDA card.  ``Prefetcher`` keeps ``depth`` batches in flight
+``SyntheticDataset`` yields, with ``sharding``, this rank's block of the
+same global batch (the reference's ``NamedSharding`` per key becomes a
+per-rank tuple of slices per key, ``batch_sharding``), and puts each
+batch on ``device``: from pinned host memory by a non-blocking copy when
+the device is a CUDA card.  ``Prefetcher`` keeps ``depth`` batches in flight
 on a background thread.
 """
 
@@ -49,15 +51,27 @@ def synth_tokens(seed: int, step: int, batch: int, seq_len: int,
     return np.clip(tok, 0, vocab - 1).astype(np.int32)
 
 
+def batch_sharding(shard, global_batch: int, keys) -> dict:
+    """{key: this rank's slices} of a ``global_batch``-row batch under a
+    ``models.model.ShardCtx`` (its batch block over ``dp``; every row
+    when ``dp`` is None)."""
+    from repro_torch.models.model import batch_rows
+    rows = batch_rows(shard, global_batch)
+    return {k: (rows,) for k in keys}
+
+
 class SyntheticDataset:
     """Iterator of train batches: {"tokens" (B, S+1) int32, and each
     ``extra`` name's (B, *shape) array drawn from
     ``np.random.default_rng(seed * 1_000_003 + step)``}.  Numpy arrays, or
-    tensors on ``device`` when one is given."""
+    tensors on ``device`` when one is given.  ``sharding``: {key: tuple of
+    slices} (:func:`batch_sharding`); each array of a key it names is cut
+    to the slices after the whole global batch is drawn, so every rank
+    gets its block of the same batch."""
 
     def __init__(self, vocab: int, seq_len: int, global_batch: int,
                  seed: int = 0, device=None, start_step: int = 0,
-                 extra: Optional[dict] = None):
+                 extra: Optional[dict] = None, sharding=None):
         self.vocab = vocab
         self.seq_len = seq_len
         self.global_batch = global_batch
@@ -65,6 +79,7 @@ class SyntheticDataset:
         self.device = None if device is None else torch.device(device)
         self.step = start_step
         self.extra = extra or {}
+        self.sharding = sharding or {}
 
     def batch_at(self, step: int) -> dict:
         tokens = synth_tokens(self.seed, step, self.global_batch,
@@ -74,6 +89,9 @@ class SyntheticDataset:
             rng = np.random.default_rng(self.seed * 1_000_003 + step)
             batch[name] = rng.standard_normal(
                 (self.global_batch, *shape)).astype(dtype)
+        batch = {k: np.ascontiguousarray(v[self.sharding[k]])
+                 if self.sharding.get(k) is not None else v
+                 for k, v in batch.items()}
         if self.device is not None:
             batch = {k: _to_device(v, self.device) for k, v in batch.items()}
         return batch

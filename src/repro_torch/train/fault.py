@@ -33,6 +33,7 @@ class PreemptionHandler:
         self._requested = False
         self._installed = False
         self._signals = signals
+        self._group = None
 
     def install(self):
         if self._installed:
@@ -50,6 +51,25 @@ class PreemptionHandler:
     @property
     def preemption_requested(self) -> bool:
         return self._requested
+
+    def agreed(self) -> bool:
+        """Whether any rank of the ``torch.distributed`` world has been
+        asked to stop, as every rank sees it: a MAX all-reduce of one int,
+        so every rank must call this at the same point, and all of them
+        act on a signal at the same step (saving a sharded state is a
+        collective; ranks that disagreed would pair its gathers with the
+        next step's collectives).  The int lives in host memory on a gloo
+        group (the world's, or one made on the first call when the world
+        is NCCL), so the host never waits on the card.  Without a world,
+        :attr:`preemption_requested`."""
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self._requested
+        if self._group is None:
+            self._group = (dist.group.WORLD if dist.get_backend() == "gloo"
+                           else dist.new_group(backend="gloo"))
+        flag = torch.tensor([int(self._requested)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+        return bool(flag.item())
 
 
 @dataclasses.dataclass

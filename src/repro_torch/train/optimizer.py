@@ -10,6 +10,12 @@ Moment dtype ``bfloat16`` halves optimizer memory; moments are stored in
 the chosen dtype and upcast inside the update.  Every scalar (the
 learning rate, the norm, the clip scale, the step) stays a tensor on the
 parameters' device, so a step never waits for the host.
+
+On a mesh the parameters, gradients and moments are this rank's blocks
+(``parallel.sharding.shard_model``), and AdamW runs on them unchanged;
+only the global-norm clip needs the whole: :func:`global_norm` with the
+model's ``layout`` all-reduces the squared norm over the mesh, each
+block counted once however many ranks hold it.
 """
 
 from __future__ import annotations
@@ -67,23 +73,36 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     }
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
+def global_norm(tensors, layout=None, names=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in float32.  With a
+    ``layout`` (``parallel.sharding.Layout``) the tensors are this rank's
+    blocks of the parameters ``names``: each block's sum is divided by
+    the number of ranks that hold it, and one all-reduce over the mesh
+    sums them."""
     leaves = [torch.sum(torch.square(x.float())) for x in tensors]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if layout is None:
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    from repro_torch.parallel.sharding import replicas
+    mesh = layout.mesh
+    parts = torch.stack([x / replicas(layout.specs[n], mesh)
+                         for x, n in zip(leaves, names)])
+    total = mesh.all_reduce(parts.sum().reshape(1),
+                            tuple(mesh.axis_names)).wait()
+    return torch.sqrt(total[0])
 
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
-                 stacked=frozenset()) -> dict:
+                 stacked=frozenset(), layout=None) -> dict:
     """One AdamW step, in place: ``params`` (the masters), ``state["m"]``,
     ``state["v"]`` and ``state["step"]`` take their new values.  Returns
     the metrics ``lr``, ``grad_norm`` and ``clip_scale`` (tensors).
-    ``stacked``: as in :func:`_decay_mask`."""
+    ``stacked``: as in :func:`_decay_mask`.  ``layout``: the blocks'
+    layout on a mesh (:func:`global_norm`); every rank calls it."""
     state["step"] += 1
     step = state["step"]
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads[k] for k in params)
+    gnorm = global_norm([grads[k] for k in params], layout, list(params))
     if cfg.clip_norm:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

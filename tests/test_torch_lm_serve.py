@@ -27,7 +27,10 @@ from repro.models import init_caches as ref_init_caches
 from repro.models import init_params as ref_init_params
 from repro.train import make_serve_steps as ref_make_serve_steps
 from repro.train.data import synth_tokens as ref_synth_tokens
-from repro_torch.configs import get_config
+from repro.train.train_step import cast_to_compute as ref_cast_to_compute
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.models.convert import named_from_numpy
+from repro_torch.models.model import stacked_names
 from repro_torch.models import (Model, forward, init_caches, init_params,
                                 params_from_numpy)
 from repro_torch.train import (cast_to_compute, greedy_sample,
@@ -130,11 +133,78 @@ def test_bf16_serving_matches_reference():
 
 
 def test_cast_to_compute_keeps_norms_float32():
+    """The final norm (unstacked in the reference) stays float32; a
+    layer's norm scales are cast, as the reference's stacked leaves are,
+    and every 2-D parameter is cast."""
     _, _, cfg, model = _pair()
     cast_to_compute(model, "bfloat16")
+    stacked = stacked_names(model)
     for name, p in model.named_parameters():
-        want = torch.float32 if p.ndim < 2 else torch.bfloat16
+        want = torch.float32 if p.ndim + (name in stacked) < 2 \
+            else torch.bfloat16
         assert p.dtype == want, name
+    assert model.final_norm.scale.dtype == torch.float32
+    assert model.stages[0][0].ln1.scale.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_cast_to_compute_casts_as_the_reference(arch):
+    """Serving's cast gives each leaf the dtype the reference's
+    ``cast_to_compute`` gives it on the carried weights, for every arch:
+    a layer's norm scales, biases, ``mu``, RG-LRU ``lam``/``b_rg``/
+    ``b_ig`` and RWKV ``decay_base`` are 2-D on its repeat axis there."""
+    ref_cfg = dataclasses.replace(ref_get_config(arch, smoke=True),
+                                  dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
+    ref_params = ref_init_params(jax.random.PRNGKey(0), ref_cfg)
+    cast = ref_cast_to_compute(ref_params, "bfloat16")
+    want = {k: str(v.dtype) for k, v in named_from_numpy(
+        jax.tree.map(np.asarray, cast), cfg).items()}
+    model = cast_to_compute(params_from_numpy(
+        jax.tree.map(np.asarray, ref_params), cfg, device="cpu"), "bfloat16")
+    got = {k: str(p.dtype).removeprefix("torch.")
+           for k, p in model.named_parameters()}
+    assert got == want
+    # the cast values are the reference's, bit for bit
+    for name, arr in named_from_numpy(jax.tree.map(np.asarray, cast),
+                                      cfg).items():
+        p = model.get_parameter(name)
+        np.testing.assert_array_equal(p.float().numpy(),
+                                      np.asarray(arr, np.float32), name)
+
+
+def test_recurrentgemma_bf16_serving_matches_reference():
+    """recurrentgemma-9b's bf16 prefill and decode logits against the
+    reference's bf16 serving steps, from carried weights.  RG-LRU's
+    ``lam`` (uniform in [2, 6]) is the leaf init leaves inexact in bf16:
+    serving now rounds it as the reference does."""
+    arch = "recurrentgemma-9b"
+    ref_cfg = dataclasses.replace(ref_get_config(arch, smoke=True),
+                                  dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
+    ref_params = ref_init_params(jax.random.PRNGKey(0), ref_cfg)
+    model = cast_to_compute(params_from_numpy(
+        jax.tree.map(np.asarray, ref_params), cfg, device="cpu"), cfg.dtype)
+    lam = model.stages[0][0].mixer.lam
+    assert lam.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        lam.float().numpy(), np.asarray(ref_params["stages"][0]["p0"][
+            "mixer"]["lam"][0].astype(jnp.bfloat16), np.float32))
+    b, s = 2, 40
+    tokens = _tokens(b, s + 1, cfg.vocab, seed=2)
+    ref_prefill, ref_decode = ref_make_serve_steps(ref_cfg, None, b, 64,
+                                                   kv_block=16)
+    prefill, decode = make_serve_steps(cfg, b, 64, kv_block=16, device="cpu")
+    ref_caches = ref_init_caches(ref_cfg, b, 64, dtype=jnp.bfloat16)
+    caches = init_caches(cfg, b, 64, dtype=torch.bfloat16, device="cpu")
+    ref_last, ref_caches = ref_prefill(ref_params, jnp.asarray(tokens[:, :s]),
+                                       ref_caches)
+    last, caches = prefill(model, tokens[:, :s], caches)
+    _close(last, ref_last, BF16_TOL)
+    ref_dec, _ = ref_decode(ref_params, jnp.asarray(tokens[:, s:]),
+                            ref_caches, s)
+    dec, _ = decode(model, tokens[:, s:], caches, s)
+    _close(dec, ref_dec, BF16_TOL)
 
 
 def test_lm_main_matches_reference_greedy_loop(monkeypatch):
@@ -261,7 +331,7 @@ def test_serve_steps_check_their_inputs():
     tokens = torch.zeros(2, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="needs caches"):
         forward(model, cfg, tokens, mode="prefill")
-    with pytest.raises(NotImplementedError, match="ShardCtx"):
+    with pytest.raises(TypeError, match="ShardCtx"):
         forward(model, cfg, tokens, shard=object())
     # prefix embeddings are accepted; the logits cover the tokens only
     logits, _ = forward(model, cfg, tokens,

@@ -205,8 +205,10 @@ def test_fnet_prefill_keeps_no_cache_state():
 
 
 def test_fnet_sharded_forward_still_raises():
+    """A shard that is not a ``ShardCtx`` is refused (the sharded FNet
+    forward itself runs in ``tests/test_torch_sharded_train.py``)."""
     _, _, cfg, model = _pair()
-    with pytest.raises(NotImplementedError, match="ShardCtx"):
+    with pytest.raises(TypeError, match="ShardCtx"):
         forward(model, cfg, torch.zeros((1, 8), dtype=torch.int32),
                 shard=object())
 

@@ -107,8 +107,23 @@ def test_train_step_keeps_fp32_masters_and_meshless_only():
     assert all(p.dtype == torch.float32 and not p.requires_grad
                for p in state["params"].parameters())
     assert all(m.dtype == torch.bfloat16 for m in state["opt"]["m"].values())
-    with pytest.raises(NotImplementedError, match="8e"):
-        make_shard_ctx(object(), 2)
+    # meshless stays meshless; a mesh gets the reference's context, the
+    # batch replicated where it does not divide over the data axis
+    assert make_shard_ctx(None, 2) is None
+
+    class Stub:
+        shape = {"data": 2, "model": 4}
+        axis_names = ("data", "model")
+    assert tuple(make_shard_ctx(Stub, 4))[1:] == ("data", "model", "model")
+    assert make_shard_ctx(Stub, 3).dp is None
+
+    # the pod axis splits the batch where the mesh has one, as the
+    # caches (init_caches(mesh=)) split it
+    class Pods:
+        shape = {"pod": 2, "data": 2, "model": 4}
+        axis_names = ("pod", "data", "model")
+    assert make_shard_ctx(Pods, 8).dp == ("pod", "data")
+    assert make_shard_ctx(Pods, 2).dp is None
 
 
 def _run(args, timeout=240):
