@@ -274,7 +274,32 @@ into ``build/``, then runs:
    prefill whose logits (every 16th position) are held within 2e-4 *
    max|ref| of the meshless forward's on the card, with the counted
    collectives;
-15. one JSON line on the kernels, the card's name and power limit, and
+15. the last modules: (15a) ``compressed_psum`` on 4 gloo ranks on the
+   card (a ``pod`` axis of 4): each rank's meshless step-0 and step-1
+   float32 gradients of 14a's model (h2o-danube-3-4b at full width, 2
+   layers) on its own seeded 2 x 1024 batch, two error-feedback rounds,
+   each leaf of the reduction within 4·amax/127 (``tests/test_parallel
+   .py:120``) of an exact float32 sum over the ranks, dequant(q) + res
+   within 1e-6 * max|x| of x + res_prev, the counted all-reduces beside
+   the float32 all-reduce's; (15b) ``pipeline_apply`` on the same ranks
+   (``stage_axis="pod"``, 4 microbatches) over 8 of h2o-danube-3-4b's
+   decoder layers at full width, one layer through
+   ``torch.func.functional_call`` on a template layer with the stacked
+   leaves: a bf16 no-grad 4 x 1024 forward that launches
+   ``flash_attention`` 2 layers x 4 microbatches on every stage (32 in
+   all), held within 5e-2 * max|ref| of a sequential pass on the card,
+   each stage's busy and wall time (on gloo) beside the bubble fraction
+   3/7; then the float32 gradient of sum(y^2) at 4 x 512, each rank's
+   block of every stacked leaf within 1e-4 * max|ref|
+   (``tests/test_pipeline.py:53``) of the sequential gradient and
+   zeros elsewhere; (15c) the multi-pod dry run in a process of its
+   own, on the CPU over fake process groups, while 15a and 15b run:
+   ``lower_fft_cell("fft_1024")`` on 16x16 (8 all-to-alls of
+   ``comm_model_bytes``), the fake count of 14a's float32 step on a (2,
+   2) world equal to what 14a's rank 0 counted, kind by kind, and the
+   ``yi-9b decode_32k`` cell on 16x16 with its host seconds and roofline
+   record;
+16. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
 Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
@@ -282,8 +307,8 @@ Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
 7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a,
 10b, 11b-11e, 12a and 12b, 10c's dispatch, each step of 13a and 13b,
 13c's card pass, 13d's runs, each sharded step, prefill and decode
-run of 14; in 3g and 5 before each backward too) and read just after
-it.
+run of 14, 15b's pipelined forward; in 3g and 5 before each backward
+too) and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -4967,6 +4992,8 @@ def phase_sharded(dev) -> dict:
     t0 = time.time()
     outs = spawn_ranks("--worker-shard", RANKS, wdir, timeout=SH_TIMEOUT_S)
     recs = _results(outs, "SHARD", "14")
+    with open(os.path.join(wdir, "step_counts.json"), "w") as f:
+        json.dump(recs[0]["14a_f32"]["steps"][-1]["collectives"], f)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -5018,6 +5045,406 @@ def phase_sharded(dev) -> dict:
     return dict(launches)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the last modules (compression, the pipeline, the dry run)
+# --------------------------------------------------------------------------
+
+P15_LAYERS = 8            # 15b: 8 decoder layers, 2 a stage
+P15_MICRO = 4             # 15b's microbatches
+P15_BATCH = 4             # 15b's bf16 forward: 4 x 1024
+P15_SEQ = 1024
+P15_GRAD_SEQ = 512        # 15b's float32 gradient: 4 x 512
+P15_CONS_TOL = 1e-6       # dequant(q) + res vs x + res_prev (x max|x|)
+P15_PIPE_TOL = 1e-4       # tests/test_pipeline.py:53 (x max|ref| here)
+P15_TIMEOUT_S = 600
+P15_DRY_ARCH, P15_DRY_SHAPE = "yi-9b", "decode_32k"
+
+
+def _p15_cfg(dtype: str):
+    return _cut(ARCH, P15_LAYERS, dtype)
+
+
+def _p15_stack(cfg, dev) -> dict:
+    """The seeded model's decoder layers, each leaf stacked on a leading
+    layer axis (the leaves ``model.stacked_names`` names, as the
+    reference stacks them), float32."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.models.model import stacked_names
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    names = stacked_names(model)
+    by = {}
+    for n, p in model.named_parameters():
+        if n in names:
+            by.setdefault(n.split(".", 3)[3], []).append(p.data)
+    stacked = {n: torch.stack(ts) for n, ts in by.items()}
+    del model
+    return stacked
+
+
+def _p15_layer_fn(cfg, seq: int, dev, busy=None):
+    """One decoder layer through ``torch.func.functional_call`` on a
+    template layer (no values of its own), in train mode at positions 0..
+    seq-1; ``busy`` (a list) collects the host seconds of each call,
+    synchronised on both sides."""
+    import torch
+    from repro_torch.models import model as model_lib
+    spec = cfg.stages[0].pattern[0]
+    bound = model_lib._Bound(model_lib.Layer(cfg, spec, device="meta"),
+                             model_lib.layer_fwd)
+    ctx = model_lib.Ctx(mode="train", q_pos=torch.arange(
+        seq, dtype=torch.int32, device=dev), start=0, prefix_len=0,
+        kv_block=KV_BLOCK)
+
+    def layer_fn(p, h):
+        if busy is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        y = torch.func.functional_call(
+            bound, {f"m.{n}": t for n, t in p.items()},
+            (h, spec, cfg, ctx, None))[0]
+        if busy is not None:
+            torch.cuda.synchronize()
+            busy.append(time.perf_counter() - t0)
+        return y
+    return layer_fn
+
+
+def _p15_inputs(cfg, dev) -> tuple:
+    """15b's seeded bf16 (4, 1024, D) and float32 (4, 512, D) inputs."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    x16 = torch.randn(P15_BATCH, P15_SEQ, cfg.d_model, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    x32 = torch.randn(P15_BATCH, P15_GRAD_SEQ, cfg.d_model, generator=gen,
+                      device=dev)
+    return x16, x32
+
+
+def _p15_refs(dev, wdir: str) -> None:
+    """15b's sequential references on the card, saved for the ranks: the
+    bf16 output, and each rank's block of the float32 gradient of
+    sum(y^2) with every leaf's max|ref|."""
+    import gc
+    import torch
+    t0 = time.time()
+    cfg = _p15_cfg("float32")
+    stacked = _p15_stack(cfg, dev)
+    x16, x32 = _p15_inputs(cfg, dev)
+    fn16 = _p15_layer_fn(_p15_cfg("bfloat16"), P15_SEQ, dev)
+    with torch.no_grad():
+        h = x16
+        for i in range(P15_LAYERS):
+            h = fn16({n: t[i].to(torch.bfloat16) for n, t in stacked.items()},
+                     h)
+    torch.save(h.cpu(), os.path.join(wdir, "seq_out.pt"))
+    fn32 = _p15_layer_fn(cfg, P15_GRAD_SEQ, dev)
+    leaves = {n: t.requires_grad_() for n, t in stacked.items()}
+    h = x32
+    for i in range(P15_LAYERS):
+        h = fn32({n: t[i] for n, t in leaves.items()}, h)
+    grads = torch.autograd.grad((h ** 2).sum(), list(leaves.values()))
+    per = P15_LAYERS // RANKS
+    scale = {n: float(g.abs().max()) for n, g in zip(leaves, grads)}
+    for r in range(RANKS):
+        torch.save({"scale": scale, "grads": {
+            n: g[per * r:per * (r + 1)].cpu()
+            for n, g in zip(leaves, grads)}},
+            os.path.join(wdir, f"grad{r}.pt"))
+    print(f"[15b] sequential references on the card: {P15_LAYERS} layers, "
+          f"bf16 {P15_BATCH} x {P15_SEQ} and float32 {P15_BATCH} x "
+          f"{P15_GRAD_SEQ}; {time.time() - t0:.1f} s", flush=True)
+    del stacked, leaves, grads, h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _p15_compress(rank, mesh, dev, fails, rec) -> None:
+    """15a on this rank."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import init_params
+    from repro_torch.parallel.compression import compressed_psum
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.train_step import value_and_grad
+    cfg = _cut(ARCH, SH_TRAIN_LAYERS, "float32")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    ds = SyntheticDataset(cfg.vocab, SH_TRAIN_SEQ, BATCH, seed=SEED + rank,
+                          device=dev)
+    res, prev_amax, rounds = None, {}, []
+    for i in range(2):
+        _, _, g = value_and_grad(model, cfg, ds.batch_at(i),
+                                 kv_block=KV_BLOCK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mesh.counting() as cnt:
+            out, new = compressed_psum(g, "pod", res, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        worst_exact = worst_cons = 0.0
+        f32_wall, f32 = 0.0, Counter()
+        for n, x in g.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with mesh.counting() as cnt32:
+                exact = mesh.all_reduce(x.clone(), "pod").wait()
+            torch.cuda.synchronize()
+            f32_wall += time.perf_counter() - t1
+            for k, e in cnt32.collectives["all-reduce"].items():
+                f32[k] += e
+            xf = x if res is None else x + res[n]
+            amax = mesh.all_reduce(xf.abs().max().reshape(1), "pod",
+                                   op=dist.ReduceOp.MAX).wait()[0]
+            scale = torch.where(amax > 0, amax / 127.0, 1.0)
+            q = torch.clamp(torch.round(xf / scale), -127, 127)
+            top = max(float(amax), prev_amax.get(n, 0.0))
+            prev_amax[n] = float(amax)
+            e = float((out[n] - exact).abs().max())
+            worst_exact = max(worst_exact, e / max(4 * top / 127, 1e-30))
+            c = float((q * scale + new[n] - xf).abs().max())
+            worst_cons = max(worst_cons, c / max(
+                float(x.abs().max()), 1e-30))
+            del exact, xf, q
+        rounds.append(dict(collectives=cnt.collectives, wall_s=wall,
+                           f32_collectives={"all-reduce": dict(f32)},
+                           f32_wall_s=f32_wall, exact_share=worst_exact,
+                           cons_share=worst_cons, leaves=len(g)))
+        if not worst_exact <= 1.0:
+            fails.append(f"15a round {i}: {worst_exact:.3f} of 4·amax/127")
+        if not worst_cons <= P15_CONS_TOL:
+            fails.append(f"15a round {i}: dequant(q) + res off x + res_prev "
+                         f"by {worst_cons:.3e} of max|x|")
+        res = new
+        del g, out
+    rec["15a"] = rounds
+    del model, res, new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _p15_pipeline(rank, mesh, dev, fails, rec) -> None:
+    """15b on this rank."""
+    import gc
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+    wdir = rec["wdir"]
+    cfg32 = _p15_cfg("float32")
+    stacked = _p15_stack(cfg32, dev)
+    x16, x32 = _p15_inputs(cfg32, dev)
+    stage = mesh.axis_index("pod")
+    busy = []
+    fn16 = _p15_layer_fn(_p15_cfg("bfloat16"), P15_SEQ, dev, busy)
+    s16 = {n: t.to(torch.bfloat16) for n, t in stacked.items()}
+    with torch.no_grad():      # one untimed pass: every stage warm
+        pipeline_apply(fn16, s16, x16, mesh=mesh, stage_axis="pod",
+                       n_micro=P15_MICRO)
+    busy.clear()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), mesh.counting() as cnt:
+        y = pipeline_apply(fn16, s16, x16, mesh=mesh, stage_axis="pod",
+                           n_micro=P15_MICRO)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = Counter(launch_counts())
+    want = torch.load(os.path.join(wdir, "seq_out.pt")).to(dev).float()
+    err = float((y.float() - want).abs().max()) / float(want.abs().max())
+    del s16, y, want
+    rec["15b_fwd"] = dict(stage=stage, launches=dict(launches), wall_s=wall,
+                          busy_s=sum(busy), calls=len(busy),
+                          idle_share=1.0 - sum(busy) / wall,
+                          bubble=bubble_fraction(RANKS, P15_MICRO),
+                          err=err, collectives=cnt.collectives)
+    rec["launches"].update(launches)
+    if not err <= BF16_TF_TOL:
+        fails.append(f"15b stage {stage}: output {err:.3e} of max|ref|")
+    per = P15_LAYERS // RANKS
+    if launches.get("flash_attention", 0) != per * P15_MICRO:
+        fails.append(f"15b stage {stage}: flash_attention launches "
+                     f"{dict(launches)}, want {per * P15_MICRO}")
+    # the float32 gradient of sum(y^2) with respect to the stacked leaves
+    fn32 = _p15_layer_fn(cfg32, P15_GRAD_SEQ, dev)
+    leaves = {n: t.requires_grad_() for n, t in stacked.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipeline_apply(fn32, leaves, x32, mesh=mesh, stage_axis="pod",
+                       n_micro=P15_MICRO)
+    (y ** 2).sum().backward()
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    ref = torch.load(os.path.join(wdir, f"grad{rank}.pt"))
+    mine = slice(per * stage, per * (stage + 1))
+    worst, leaf, elsewhere = 0.0, None, 0.0
+    for n, t in leaves.items():
+        g = t.grad
+        e = float((g[mine].cpu() - ref["grads"][n]).abs().max()) / max(
+            ref["scale"][n], 1e-30)
+        if e > worst:
+            worst, leaf = e, n
+        rest = torch.cat([g[:mine.start], g[mine.stop:]])
+        elsewhere = max(elsewhere, float(rest.abs().max()))
+    rec["15b_grad"] = dict(err=worst, leaf=leaf, elsewhere=elsewhere,
+                           wall_s=gwall)
+    if not worst <= P15_PIPE_TOL:
+        fails.append(f"15b stage {stage}: gradient {leaf} {worst:.3e} of "
+                     f"max|ref|")
+    if elsewhere != 0.0:
+        fails.append(f"15b stage {stage}: gradient {elsewhere} outside "
+                     f"its layers")
+    del stacked, leaves, y, ref, x16, x32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def worker_last(rank: int, port: int, wdir: str) -> None:
+    """15a and 15b on one of 4 gloo ranks sharing the card; a failed
+    check is recorded and raised after the groups are torn down."""
+    import torch
+    from repro_torch.core import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    join_ranks(rank, port, RANKS)
+    mesh = make_mesh((RANKS,), ("pod",), device=dev)
+    fails, rec = [], {"rank": rank, "wdir": wdir, "launches": Counter()}
+    t0 = time.time()
+    _p15_compress(rank, mesh, dev, fails, rec)
+    rec["15a_s"] = time.time() - t0
+    t0 = time.time()
+    _p15_pipeline(rank, mesh, dev, fails, rec)
+    rec["15b_s"] = time.time() - t0
+    rec["fails"] = fails
+    print("LAST " + json.dumps(rec, default=str), flush=True)
+    leave_ranks(mesh)
+    if fails:
+        raise SystemExit("FAILED: phase 15 rank "
+                         f"{rank}: " + "; ".join(fails))
+
+
+def dryrun_cells() -> None:
+    """15c, in a process of its own (it joins fake process groups): the
+    FFT cell, the fake count of 14a's step, and one production LM cell;
+    prints one DRY JSON line.  Touches no card."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    rec = {}
+    t0 = time.time()
+    rec["fft"] = dryrun.lower_fft_cell("fft_1024", False)
+    rec["fft"]["wall_s"] = time.time() - t0
+    t0 = time.time()
+    with dryrun.fake_world(RANKS):
+        mesh = make_local_mesh(model=SH_MODEL, device="cpu")
+        got = dryrun.count_lm_step(
+            _cut(ARCH, SH_TRAIN_LAYERS, "float32"),
+            ShapeSpec("14a", "train", SH_TRAIN_SEQ, BATCH), mesh, KV_BLOCK,
+            {"moment_dtype": "float32"})
+        mesh.close()
+    rec["14a"] = dict(collectives=got["collectives"],
+                      count_s=got["count_s"], wall_s=time.time() - t0)
+    t0 = time.time()
+    rec["lm"] = dryrun.lower_lm_cell(P15_DRY_ARCH, P15_DRY_SHAPE, False)
+    rec["lm"]["wall_s"] = time.time() - t0
+    print("DRY " + json.dumps(rec), flush=True)
+
+
+def phase_last_modules(dev) -> dict:
+    """Phase 15 (module docstring); returns the launches of 15b's
+    pipelined forward."""
+    import torch
+    t_phase = time.time()
+    wdir = os.path.join(ROOT, "build", "phase15")
+    os.makedirs(wdir, exist_ok=True)
+    dry = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                            "--dryrun"], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    try:
+        _p15_refs(dev, wdir)
+        t0 = time.time()
+        outs = spawn_ranks("--worker-last", RANKS, wdir,
+                           timeout=P15_TIMEOUT_S)
+        t_ranks = time.time() - t0
+        t0 = time.time()
+        dout, _ = dry.communicate(timeout=P15_TIMEOUT_S)
+        t_wait = time.time() - t0
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    recs = _results(outs, "LAST", "15")
+    if dry.returncode:
+        print(dout[-4000:], file=sys.stderr)
+    check(dry.returncode == 0, f"15c dry run exited {dry.returncode}")
+    drec = _results([dout], "DRY", "15c")[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"[15] 4 gloo ranks on one card ({smi}), a pod axis of 4, ranks "
+          f"ran {t_ranks:.1f} s; gloo's wire and host copies are gloo's, "
+          f"not the card's", flush=True)
+    for r in recs:
+        for i, a in enumerate(r["15a"]):
+            print(f"[15a] rank {r['rank']} round {i}: {a['leaves']} leaves, "
+                  f"compressed_psum counted {a['collectives']} in "
+                  f"{a['wall_s']:.3f} s wall, the float32 all-reduce "
+                  f"{a['f32_collectives']} in {a['f32_wall_s']:.3f} s; worst "
+                  f"leaf {a['exact_share']:.3f} of 4·amax/127 from the exact "
+                  f"sum, dequant(q) + res off x + res_prev by "
+                  f"{a['cons_share']:.3e} of max|x|", flush=True)
+    for r in recs:
+        b, g = r["15b_fwd"], r["15b_grad"]
+        print(f"[15b] stage {b['stage']}: launches {b['launches']}, "
+              f"output err {b['err']:.3e} of max|ref|, wall "
+              f"{b['wall_s'] * 1e3:.1f} ms, busy {b['busy_s'] * 1e3:.1f} ms "
+              f"in {b['calls']} layer calls, idle share "
+              f"{b['idle_share']:.3f} (bubble fraction {b['bubble']:.4f}), "
+              f"collectives {b['collectives']}; float32 gradient "
+              f"{g['err']:.3e} of max|ref| ({g['leaf']}), outside its "
+              f"layers {g['elsewhere']}, forward+backward {g['wall_s']:.2f} "
+              f"s wall", flush=True)
+    launches = Counter()
+    for r in recs:
+        launches.update(r["launches"])
+    want = P15_LAYERS * P15_MICRO
+    check(launches.get("flash_attention", 0) == want,
+          f"15b flash_attention launches {dict(launches)}, want {want}")
+    # 15c
+    fft, lm = drec["fft"], drec["lm"]
+    print(f"[15c] dry run in its own process, on the CPU, waited "
+          f"{t_wait:.1f} s after the ranks: fft_1024 pencil on 16x16 "
+          f"{fft.get('status')} {fft.get('collectives')} against "
+          f"comm_model_bytes {fft.get('comm_model_bytes')} "
+          f"({fft['wall_s']:.1f} s)", flush=True)
+    check(fft.get("status") == "ok" and fft["collectives"] == {
+        "all-to-all": {"count": 8, "bytes": int(fft["comm_model_bytes"])}},
+        f"15c fft_1024 cell {fft}")
+    with open(os.path.join(ROOT, "build", "phase14",
+                           "step_counts.json")) as f:
+        real = json.load(f)
+    fake = drec["14a"]
+    print(f"[15c] 14a's float32 step on a fake (2, 2) world: "
+          f"{fake['collectives']} in {fake['count_s']:.1f} s; 14a's rank 0 "
+          f"counted {real}", flush=True)
+    check(fake["collectives"] == real,
+          f"15c fake count {fake['collectives']} != 14a's {real}")
+    print(f"[15c] {P15_DRY_ARCH} {P15_DRY_SHAPE} on 16x16: "
+          f"{lm.get('status')}, count_s {lm.get('count_s')} "
+          f"({lm['wall_s']:.1f} s wall), roofline {lm.get('roofline')}, "
+          f"collectives {lm.get('collectives')}, memory {lm.get('memory')}",
+          flush=True)
+    check(lm.get("status") == "ok", f"15c {P15_DRY_ARCH} cell: "
+          f"{lm.get('error')}")
+    print(f"[15] launches {dict(launches)}; phase 15 "
+          f"{time.time() - t_phase:.1f} s (15a {recs[0]['15a_s']:.1f}, 15b "
+          f"{recs[0]['15b_s']:.1f})", flush=True)
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5051,8 +5478,9 @@ def main() -> int:
               ("fnet", phase_fnet(dev, trace_results)), ("moe", moe_counts),
               ("lm_archs", phase_lm_archs(dev, scan_results)),
               ("frontends", phase_frontends(dev)), ("train", phase_train(dev)),
-              ("sharded", phase_sharded(dev))]
-    print("[15] launches by path: " + json.dumps(dict(paths), default=str),
+              ("sharded", phase_sharded(dev)),
+              ("last_modules", phase_last_modules(dev))]
+    print("[16] launches by path: " + json.dumps(dict(paths), default=str),
           flush=True)
 
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
@@ -5115,5 +5543,11 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--worker-shard":
         worker_shard(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker-last":
+        worker_last(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "--dryrun":
+        dryrun_cells()
         sys.exit(0)
     sys.exit(main())

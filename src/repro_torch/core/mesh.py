@@ -34,7 +34,8 @@ wire (the port's stand-in for counting collectives in compiled HLO): one
 :meth:`Mesh.reshard`, :meth:`Mesh.mirror`, :meth:`Mesh.gather`), one
 ``"collective-permute"`` per point-to-point round of
 :meth:`Mesh.exchange` and one ``"all-reduce"`` per
-:meth:`Mesh.all_reduce`, with the bytes this rank hands them.
+:meth:`Mesh.all_reduce` (a sum or a max), with the bytes this rank
+hands them.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import itertools
 import math
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -109,6 +111,17 @@ class Mesh:
         self.host_staged_bytes = 0
         self.reshard_bytes = 0
         self._members = {}
+        self._moves = {}
+        # every rank's coordinates as plain ints, read from the device
+        # mesh's tensor once: no tensor indexing after construction (a
+        # reshard under FakeTensorMode reads no value)
+        grid = device_mesh.mesh
+        self._coords = [None] * math.prod(grid.shape)
+        self._rank_at = {}
+        for idx, r in zip(itertools.product(*(range(n) for n in grid.shape)),
+                          grid.reshape(-1).tolist()):
+            self._coords[r] = dict(zip(self.axis_names, idx))
+            self._rank_at[idx] = r
         self._folded = self._fold_groups()
         self._count: Optional[CollectiveCount] = None
 
@@ -216,8 +229,8 @@ class Mesh:
             for idx in itertools.product(*(range(self.shape[a])
                                            for a in names)):
                 at = dict(here, **dict(zip(names, idx)))
-                got.append(int(self.device_mesh.mesh[
-                    tuple(at[a] for a in self.axis_names)]))
+                got.append(self._rank_at[tuple(at[a]
+                                               for a in self.axis_names)])
             self._members[axis] = got
         return got
 
@@ -292,15 +305,20 @@ class Mesh:
             return got.movedim(0, concat_axis).reshape(out)
         return Pending([work], finish)
 
-    def all_reduce(self, x: torch.Tensor, axis) -> Pending:
-        """Sum over ``axis`` (``jax.lax.psum``), into ``x`` in place (a
-        contiguous tensor); the result is ``x``."""
+    def all_reduce(self, x: torch.Tensor, axis,
+                   op=dist.ReduceOp.SUM) -> Pending:
+        """Sum (``jax.lax.psum``), or another ``op`` (``ReduceOp.MAX``:
+        ``jax.lax.pmax``), over ``axis``, into ``x`` in place (a
+        contiguous tensor); the result is ``x``.  Counted as one
+        ``"all-reduce"`` whatever the op, as the reference's HLO counts
+        a ``pmax``."""
         if self.axis_size(axis) == 1:
             return Pending.done(x)
         if not x.is_contiguous():
             raise ValueError("all_reduce sums in place: x must be contiguous")
         self._counted("all-reduce", x.numel() * x.element_size())
-        work = dist.all_reduce(x, group=self.group(axis), async_op=True)
+        work = dist.all_reduce(x, op=op, group=self.group(axis),
+                               async_op=True)
         return Pending([work], lambda: x)
 
     def exchange(self, sends: Sequence, recvs: Sequence, axis) -> Pending:
@@ -327,12 +345,9 @@ class Mesh:
         return Pending(works, finish)
 
     def rank_coords(self) -> list:
-        """Mesh coordinates of every rank, indexed by global rank."""
-        grid = self.device_mesh.mesh
-        out = [None] * self.size
-        for idx in itertools.product(*(range(n) for n in grid.shape)):
-            out[int(grid[idx])] = dict(zip(self.axis_names, idx))
-        return out
+        """Mesh coordinates of every rank, indexed by global rank (a new
+        list of the table made once, at construction)."""
+        return [dict(c) for c in self._coords]
 
     def reshard(self, blk: torch.Tensor, shape: Sequence[int], src_spec,
                 dst_spec) -> torch.Tensor:
@@ -370,14 +385,31 @@ class Mesh:
 
     def _move(self, blk: torch.Tensor, shape: tuple, src_spec: tuple,
               dst_spec: tuple, negate: tuple = ()) -> torch.Tensor:
-        """The all-to-all of :meth:`reshard` and :meth:`mirror`."""
+        """The all-to-all of :meth:`reshard` and :meth:`mirror`, by this
+        rank's plan for the block shape and layouts (:class:`_MovePlan`,
+        made on first use and kept)."""
+        key = (tuple(blk.shape), tuple(shape), src_spec, dst_spec, negate)
+        plan = self._moves.get(key)
+        if plan is None:
+            plan = self._moves[key] = self._move_plan(*key)
+        send = plan.pack(blk)
+        recv = torch.empty(sum(plan.recv_sizes), dtype=blk.dtype,
+                           device=blk.device)
+        self.reshard_bytes += plan.sent * blk.element_size()
+        self._counted("all-to-all", send.numel() * send.element_size())
+        dist.all_to_all_single(recv, send, plan.recv_sizes, plan.send_sizes)
+        return plan.unpack(recv, blk)
+
+    def _move_plan(self, blk_shape: tuple, shape: tuple, src_spec: tuple,
+                   dst_spec: tuple, negate: tuple) -> "_MovePlan":
+        """What this rank sends each rank and places from each, for
+        :meth:`_move` (host arithmetic only: no tensor is made)."""
         nd = len(src_spec)
-        lead = tuple(blk.shape[:blk.ndim - nd])
-        grid = tuple(shape[len(shape) - nd:])
+        lead = blk_shape[:len(blk_shape) - nd]
+        grid = shape[len(shape) - nd:]
         sizes = self.shape
-        coords = self.rank_coords()
-        src = [spec_slices(src_spec, shape, sizes, c) for c in coords]
-        dst = [spec_slices(dst_spec, shape, sizes, c) for c in coords]
+        src = [spec_slices(src_spec, shape, sizes, c) for c in self._coords]
+        dst = [spec_slices(dst_spec, shape, sizes, c) for c in self._coords]
         first = {}
         for r, box in enumerate(src):
             first.setdefault(tuple((b.start, b.stop) for b in box), r)
@@ -385,9 +417,9 @@ class Mesh:
                  for r, box in enumerate(src)]
         me = dist.get_rank()
         want = tuple(s.stop - s.start for s in src[me])
-        if tuple(blk.shape[blk.ndim - nd:]) != want:
-            raise ValueError(f"block {tuple(blk.shape)} is not this rank's "
-                             f"{want} block of {tuple(shape)}")
+        if blk_shape[len(lead):] != want:
+            raise ValueError(f"block {blk_shape} is not this rank's "
+                             f"{want} block of {shape}")
 
         def link(s, d):
             """Per dim (selection in d's block, selection in s's block) of
@@ -397,10 +429,10 @@ class Mesh:
             out = []
             for i, (a, b) in enumerate(zip(src[s], dst[d])):
                 if i in negate:
-                    k = torch.arange(b.start, b.stop)
+                    k = np.arange(b.start, b.stop)
                     m = (-k) % grid[i]
                     keep = (m >= a.start) & (m < a.stop)
-                    if not bool(keep.any()):
+                    if not keep.any():
                         return None
                     out.append((k[keep] - b.start, m[keep] - a.start))
                     continue
@@ -411,48 +443,9 @@ class Mesh:
                             slice(lo - a.start, hi - a.start)))
             return out
 
-        def index(sels, side):
-            sel = [p[side] for p in sels]
-            if not negate:
-                return (Ellipsis,) + tuple(sel)
-            return (Ellipsis,) + tuple(
-                (torch.arange(x.start, x.stop) if isinstance(x, slice) else x)
-                .to(blk.device).view([-1 if i == d else 1 for i in range(nd)])
-                for d, x in enumerate(sel))
-
-        def extent(sels):
-            return lead + tuple((x.stop - x.start) if isinstance(x, slice)
-                                else len(x) for x, _ in sels)
-
-        def count(sels):
-            return math.prod(extent(sels))
-
-        # data flows s -> d: read by the source side (1) of a link and
-        # placed by its destination side (0)
-        sends, send_sizes = [], []
-        for d in range(self.size):
-            sels = link(me, d)
-            send_sizes.append(0 if sels is None else count(sels))
-            if sels is not None:
-                sends.append(blk[index(sels, 1)].reshape(-1))
-                if d != me:
-                    self.reshard_bytes += send_sizes[-1] * blk.element_size()
-        ins = [link(s, me) for s in range(self.size)]
-        recv_sizes = [0 if sels is None else count(sels) for sels in ins]
-        send = (torch.cat(sends) if sends else
-                torch.empty(0, dtype=blk.dtype, device=blk.device))
-        recv = torch.empty(sum(recv_sizes), dtype=blk.dtype, device=blk.device)
-        self._counted("all-to-all", send.numel() * send.element_size())
-        dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
-        out = torch.empty(lead + tuple(s.stop - s.start for s in dst[me]),
-                          dtype=blk.dtype, device=blk.device)
-        at = 0
-        for sels, n in zip(ins, recv_sizes):
-            if sels is None:
-                continue
-            out[index(sels, 0)] = recv[at:at + n].reshape(extent(sels))
-            at += n
-        return out
+        return _MovePlan(lead, [link(me, d) for d in range(self.size)],
+                         [link(s, me) for s in range(self.size)],
+                         lead + tuple(b.stop - b.start for b in dst[me]), me)
 
     def gather(self, blk: torch.Tensor, shape: Sequence[int],
                spec) -> torch.Tensor:
@@ -553,6 +546,131 @@ class Mesh:
         ``spec``), as a view."""
         box = spec_slices(spec, full.shape, self.shape, self.coords)
         return full[(Ellipsis,) + box]
+
+
+class _MovePlan:
+    """One rank's side of a move's all-to-all: ``sends[d]`` and
+    ``recvs[s]`` are the per-dim links (selection in the destination's
+    block, selection in the source's block) of what goes to rank d and
+    comes from rank s, or None.  :meth:`pack` reads the rank's pieces out
+    of its block into one send buffer and :meth:`unpack` places the
+    received ones, each in as few tensor ops as the links allow: a block
+    cut into a regular grid of pieces is one permuted copy, one piece
+    sent to many ranks one repeated copy; other links (the mirror's
+    index lists) take a slice and a copy a piece."""
+
+    def __init__(self, lead: tuple, sends: list, recvs: list,
+                 out_shape: tuple, me: int):
+        def count(sels):
+            return 0 if sels is None else math.prod(lead) * math.prod(
+                len(x) if not isinstance(x, slice) else x.stop - x.start
+                for x in sels)
+        self.lead, self.out_shape = lead, out_shape
+        self.send_sizes = [count(None if s is None else [p[1] for p in s])
+                           for s in sends]
+        self.recv_sizes = [count(None if s is None else [p[0] for p in s])
+                           for s in recvs]
+        self.sent = sum(n for d, n in enumerate(self.send_sizes) if d != me)
+        self._sends = [[p[1] for p in s] for s in sends if s is not None]
+        self._recvs = [[p[0] for p in s] for s in recvs if s is not None]
+
+    def pack(self, blk: torch.Tensor) -> torch.Tensor:
+        """The send buffer, contiguous (a collective's requirement) for
+        any layout of ``blk``."""
+        sels = self._sends
+        if not sels:
+            return blk.new_empty(0)
+        if len(sels) > 1 and _plain(sels[0]) and all(
+                s == sels[0] for s in sels):
+            return blk[(Ellipsis,) + tuple(sels[0])].reshape(-1).repeat(
+                len(sels))
+        tiles = _tiling(sels, blk.shape[len(self.lead):])
+        if tiles is None:
+            pieces = [blk[_index(s, blk.device)].reshape(-1) for s in sels]
+            return (torch.cat(pieces) if len(pieces) > 1
+                    else pieces[0].contiguous())
+        counts, order = tiles
+        nl, nd = len(self.lead), len(counts)
+        steps = [e // c for e, c in zip(blk.shape[nl:], counts)]
+        x = blk.reshape(self.lead + tuple(
+            v for c, st in zip(counts, steps) for v in (c, st)))
+        x = x.permute([nl + 2 * i for i in range(nd)] + list(range(nl))
+                      + [nl + 2 * i + 1 for i in range(nd)])
+        x = x.reshape(len(order), -1)
+        if order != sorted(order):
+            # buffer piece k is grid piece f_k: order[f_k] = k
+            f = sorted(range(len(order)), key=order.__getitem__)
+            x = x[torch.tensor(f, device=blk.device)]
+        return x.reshape(-1).contiguous()
+
+    def unpack(self, recv: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
+        sels = self._recvs
+        tiles = _tiling(sels, self.out_shape[len(self.lead):])
+        if tiles is None:
+            out = torch.empty(self.out_shape, dtype=blk.dtype,
+                              device=blk.device)
+            at = 0
+            for s in sels:
+                ext = self.lead + tuple(
+                    x.stop - x.start if isinstance(x, slice) else len(x)
+                    for x in s)
+                n = math.prod(ext)
+                out[_index(s, blk.device)] = recv[at:at + n].reshape(ext)
+                at += n
+            return out
+        counts, order = tiles
+        nl, nd = len(self.lead), len(counts)
+        steps = [e // c for e, c in zip(self.out_shape[nl:], counts)]
+        x = recv.reshape(len(order), -1)
+        if order != sorted(order):
+            x = x[torch.tensor(order, device=recv.device)]
+        x = x.reshape(tuple(counts) + self.lead + tuple(steps))
+        perm = list(range(nd, nd + nl))
+        for i in range(nd):
+            perm += [i, nd + nl + i]
+        return x.permute(perm).reshape(self.out_shape)
+
+
+def _plain(sels) -> bool:
+    return all(isinstance(x, slice) for x in sels)
+
+
+def _index(sels, device) -> tuple:
+    """The indexing tuple of a link's selections: basic slices, or (a
+    mirror's) broadcast index tensors, one per dim."""
+    if _plain(sels):
+        return (Ellipsis,) + tuple(sels)
+    nd = len(sels)
+    return (Ellipsis,) + tuple(
+        (torch.arange(x.start, x.stop) if isinstance(x, slice)
+         else torch.from_numpy(x)).to(device).view(
+            [-1 if i == d else 1 for i in range(nd)])
+        for d, x in enumerate(sels))
+
+
+def _tiling(boxes: list, extents) -> Optional[tuple]:
+    """(counts, order) when ``boxes`` (per-dim slices, in buffer order)
+    tile a block of ``extents`` as a regular grid: ``counts[i]`` equal
+    pieces along dim i, and ``order[f]`` the buffer position of the
+    piece at row-major grid index f.  None otherwise."""
+    if not boxes or not all(_plain(b) for b in boxes):
+        return None
+    counts, flat = [], [0] * len(boxes)
+    for i, e in enumerate(extents):
+        starts = sorted({b[i].start for b in boxes})
+        step = e // len(starts) if e else 0
+        if not step or starts != list(range(0, e, step)) or any(
+                b[i].stop - b[i].start != step for b in boxes):
+            return None
+        counts.append(len(starts))
+        for k, b in enumerate(boxes):
+            flat[k] = flat[k] * len(starts) + b[i].start // step
+    if sorted(flat) != list(range(math.prod(counts))):
+        return None
+    order = [0] * len(flat)
+    for k, f in enumerate(flat):
+        order[f] = k
+    return counts, order
 
 
 def _axis_arg(axes):
@@ -661,8 +779,9 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
         raise ValueError(f"mesh {tuple(axis_sizes)} does not cover "
                          f"{dist.get_world_size()} ranks")
     # the device mesh's own type only selects how it builds its groups:
-    # gloo groups are built as a "cpu" mesh, whatever holds the blocks
-    mesh_type = "cpu" if dist.get_backend() == "gloo" else "cuda"
+    # gloo (and the dry run's fake) groups are built as a "cpu" mesh,
+    # whatever holds the blocks
+    mesh_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dm = init_device_mesh(mesh_type, tuple(axis_sizes),
                           mesh_dim_names=tuple(axis_names))
     return Mesh(dm, resolve_device(device))

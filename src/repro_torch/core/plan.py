@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.device import has_values
+
 # Largest DFT applied as a single matmul (the radix of the four-step split).
 MAX_RADIX = 64
 # Largest 1-D size handled by a single two-level four-step plan (the
@@ -117,7 +119,8 @@ class FFTPlan:
                 consts = tuple(None if a is None
                                else torch.from_numpy(a).to(device)
                                for a in (self.w1, self.w2, self.tw))
-                self._on_device[device] = consts
+                if has_values(consts[0]):
+                    self._on_device[device] = consts
             return consts
         cdtype = _torch_dtype(self.dtype)
         sign = self.sign
@@ -145,7 +148,8 @@ class FFTPlan:
         tw_t = self._on_device.get(key)
         if tw_t is None:
             tw_t = torch.from_numpy(np.ascontiguousarray(self.tw.T)).to(device)
-            self._on_device[key] = tw_t
+            if has_values(tw_t):
+                self._on_device[key] = tw_t
         return tw_t
 
 

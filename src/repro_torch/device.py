@@ -26,3 +26,12 @@ def full_fp32_matmul(device: torch.device) -> None:
     about three digits and would not hold the FFT tolerances)."""
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def has_values(t: torch.Tensor) -> bool:
+    """False for a tensor that has a shape and no values: on ``meta``, or
+    fake under ``FakeTensorMode`` (the dry run, ``launch.dryrun``).  Such
+    a tensor is never cached past the call that made it: it belongs to
+    its mode."""
+    from torch._subclasses.fake_tensor import is_fake
+    return not (t.is_meta or is_fake(t))

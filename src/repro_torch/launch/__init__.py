@@ -1,2 +1,2 @@
-"""Launch layer: the serving and training entry points and the roofline
-constants (port of ``repro/launch``)."""
+"""Launch layer: the serving and training entry points, the multi-pod
+dry run and the roofline terms (port of ``repro/launch``)."""

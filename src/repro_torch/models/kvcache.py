@@ -26,6 +26,7 @@ writes each rank's slots from the whole segment's K/V.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models.config import (AttentionSpec, LayerSpec,
@@ -103,19 +104,22 @@ def _write_slots(cache: dict, news: dict, start: int, first: int) -> dict:
     slot-sharded cache (slot = pos % slots): each tensor of ``news``
     (B, S, ...) into the rank's slots [first, first + local) of the
     cache's tensor of that name, and every slot's position into the
-    whole ``pos``.  The indices are made on the host (no wait on the
-    card)."""
+    whole ``pos``.  The indices are made on the host, in numpy (no wait
+    on the card, and no value read from a tensor: the dry run's fake
+    tensors have none)."""
     n_slots = cache["pos"].shape[0]
     local = next(iter(news.values()))
     s_new = local.shape[1]
-    positions = torch.arange(start, start + s_new)
+    positions = np.arange(start, start + s_new)
     slots = positions % n_slots
     dev = cache["pos"].device
-    cache["pos"][slots.to(dev)] = positions.to(dev, torch.int32)
+    cache["pos"][torch.from_numpy(slots).to(dev)] = torch.from_numpy(
+        positions).to(dev, torch.int32)
     n_local = cache[next(iter(news))].shape[1]
-    sel = torch.nonzero((slots >= first) & (slots < first + n_local))[:, 0]
-    if sel.numel():
-        dst, src = (slots[sel] - first).to(dev), sel.to(dev)
+    sel = np.nonzero((slots >= first) & (slots < first + n_local))[0]
+    if sel.size:
+        dst = torch.from_numpy(slots[sel] - first).to(dev)
+        src = torch.from_numpy(sel).to(dev)
         for name, new in news.items():
             cache[name][:, dst] = new[:, src].to(cache[name].dtype)
     return cache

@@ -18,6 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import has_values
+
+
 def master_param(*shape, device=None) -> nn.Parameter:
     """An fp32 master.  It does not require grad: the training step
     (``train.train_step.make_train_step``) differentiates with respect to
@@ -36,7 +39,12 @@ def takes_grad(*xs: torch.Tensor) -> bool:
 
 
 def truncated_normal_(t: torch.Tensor, std: float, generator=None):
-    """``std`` times a standard normal truncated to [-2, 2], in place."""
+    """``std`` times a standard normal truncated to [-2, 2], in place.  A
+    tensor without values (:func:`has_values`) keeps its shape only, as
+    the reference's initializers do under ``jax.eval_shape``: the draw
+    rejects samples by reading them."""
+    if not has_values(t):
+        return t
     return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                  generator=generator)
 

@@ -68,6 +68,14 @@ def _capacity(n_tokens: int, m: MoESpec) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 for clean tiling
 
 
+def _expert_counts(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """How many (token, choice) pairs each of the ``e`` experts got: an
+    (e,) count of a static shape (``bincount``'s length depends on the
+    values, which the dry run's fake tensors do not have)."""
+    return flat_e.new_zeros(e).index_add_(0, flat_e,
+                                          torch.ones_like(flat_e))
+
+
 def _dispatch(xt: torch.Tensor, router: torch.Tensor, m: MoESpec, cap: int):
     """Tokens (T, D) -> the (E, C, D) buffer and the combine's metadata
     (keep, slot, token_of, gate_vals, order)."""
@@ -81,7 +89,7 @@ def _dispatch(xt: torch.Tensor, router: torch.Tensor, m: MoESpec, cap: int):
     flat_e = topk_idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    counts = _expert_counts(flat_e, e)
     starts = counts.cumsum(0) - counts
     pos_in_e = torch.arange(t * k, device=xt.device) - starts[sorted_e]
     keep = pos_in_e < cap
@@ -139,8 +147,7 @@ def aux_load_balance_loss(p: MoE, x: torch.Tensor, m: MoESpec, mesh=None,
     xt = x.reshape(-1, x.shape[-1]).float()
     probs = torch.softmax(xt @ p.router.float(), -1)
     _, topk_idx = torch.topk(probs, m.top_k, dim=-1)
-    hits = torch.bincount(topk_idx.reshape(-1),
-                          minlength=m.n_experts).float()
+    hits = _expert_counts(topk_idx.reshape(-1), m.n_experts).float()
     psum = probs.sum(0)
     n_tok = torch.tensor([float(xt.shape[0])], device=x.device)
     if mesh is not None and axes:

@@ -2,7 +2,7 @@
 
 Port of ``repro.parallel``: ``sharding`` (the partition rules and the
 port's block layout), ``seqscan`` (the sequence-parallel linear
-recurrences and their halos) and ``loss`` (the chunked cross-entropy,
-meshless or summed over a mesh).  Compression and the pipeline are
-queued in ``ROADMAP.md`` (queue 1 item 8f).
+recurrences and their halos), ``loss`` (the chunked cross-entropy,
+meshless or summed over a mesh), ``compression`` (int8 error-feedback
+``compressed_psum``) and ``pipeline`` (the GPipe ``pipeline_apply``).
 """

@@ -57,6 +57,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.train.data", "repro_torch.train.train_step",
             "repro_torch.parallel.loss",
             "repro_torch.launch.train"} <= set(_port_modules())
+    assert {"repro_torch.parallel.compression",
+            "repro_torch.parallel.pipeline",
+            "repro_torch.launch.dryrun"} <= set(_port_modules())
 
 
 def _imported_roots(path: str) -> set:
