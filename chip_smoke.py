@@ -28,10 +28,11 @@ into ``build/``, then runs:
    reference test's four configurations and its bf16 case
    (``tests/test_kernels_fft.py:84-115``), ragged lengths (Sq = Skv =
    6145 at head_dim 120 and window 4096, Sq != Skv, rows with no valid
-   key), each element within 5e-5 (f32) or 2**-6 of its value plus
-   5e-5 (bf16); then the h2o-danube-3-4b prefill shape (B 2, S 6144, 32
-   heads over 8, head_dim 120, window 4096, bf16), held the same way and
-   timed beside its plain version and one
+   key), phase 15b's microbatch (1 x 1024, 32 heads over 8, head_dim
+   120, window 4096, bf16), each element within 5e-5 (f32) or 2**-6 of
+   its value plus 5e-5 (bf16); then the h2o-danube-3-4b prefill shape
+   (B 2, S 6144, 32 heads over 8, head_dim 120, window 4096, bf16),
+   held the same way and timed beside its plain version and one
    ``scaled_dot_product_attention`` call with the causal-window mask, and
    each variant's time and launches there (the bf16 tensor-core kernel;
    the FFMA kernel in float32); then mixtral-8x22b's prefill and
@@ -285,14 +286,17 @@ into ``build/``, then runs:
    (``stage_axis="pod"``, 4 microbatches) over 8 of h2o-danube-3-4b's
    decoder layers at full width, one layer through
    ``torch.func.functional_call`` on a template layer with the stacked
-   leaves: a bf16 no-grad 4 x 1024 forward that launches
-   ``flash_attention`` 2 layers x 4 microbatches on every stage (32 in
-   all), held within 5e-2 * max|ref| of a sequential pass on the card,
-   each stage's busy and wall time (on gloo) beside the bubble fraction
-   3/7; then the float32 gradient of sum(y^2) at 4 x 512, each rank's
-   block of every stacked leaf within 1e-4 * max|ref|
-   (``tests/test_pipeline.py:53``) of the sequential gradient and
-   zeros elsewhere; (15c) the multi-pod dry run in a process of its
+   leaves, each rank holding only its own 2 layers (``local=True``):
+   a bf16 no-grad 4 x 1024 forward that launches ``flash_attention`` 2
+   layers x 4 microbatches on every stage (32 in all), held within 5e-2
+   * max|ref| (phase 4's bf16 bound at depth) of a sequential pass on
+   the card whose attention is the kernel's plain version (no kernel
+   launch), each stage's busy and wall time (on gloo) beside the bubble
+   fraction 3/7 and its peak device memory beside the whole stack's
+   bytes; then the float32 gradient of sum(y^2) at 4 x 512 (every
+   rank's loss checked equal), each rank's block of every stacked leaf
+   within 1e-4 * max|ref| (``tests/test_pipeline.py:53``) of the
+   sequential gradient; (15c) the multi-pod dry run in a process of its
    own, on the CPU over fake process groups, while 15a and 15b run:
    ``lower_fft_cell("fft_1024")`` on 16x16 (8 all-to-alls of
    ``comm_model_bytes``), the fake count of 14a's float32 step on a (2,
@@ -311,7 +315,9 @@ run of 14, 15b's pipelined forward; in 3g and 5 before each backward
 too) and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
-phase fails.
+phase fails.  ``python3 chip_smoke.py --phases sharded last_modules``
+builds the kernels and runs only the named phases (``phase_<name>``
+taking the device), printing no result line.
 """
 
 from __future__ import annotations
@@ -945,6 +951,8 @@ ATTN_CASES = (
     (1, 200, 300, 4, 2, 32, False, 50, "float32"),
     # rows past skv + window - 1 see no valid key: every chunk is walked
     (1, 300, 100, 2, 1, 64, True, 32, "float32"),
+    # phase 15b's pipelined microbatch: h2o-danube-3-4b, 1 x 1024
+    (1, 1024, 1024, 32, 8, 120, True, 4096, "bfloat16"),
     # whisper-base's encoder self-attention (phase 12a): 1500 frames,
     # non-causal
     (8, 1500, 1500, 8, 8, 64, False, None, "bfloat16"),
@@ -5124,20 +5132,42 @@ def _p15_inputs(cfg, dev) -> tuple:
 
 def _p15_refs(dev, wdir: str) -> None:
     """15b's sequential references on the card, saved for the ranks: the
-    bf16 output, and each rank's block of the float32 gradient of
-    sum(y^2) with every leaf's max|ref|."""
+    bf16 output, its attention computed by ``flash_attention_plain`` in
+    place of the kernel (so that the pipelined forward's kernel is held
+    against the plain version), and each rank's block of the float32
+    gradient of sum(y^2) with every leaf's max|ref|."""
     import gc
     import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention
     t0 = time.time()
     cfg = _p15_cfg("float32")
     stacked = _p15_stack(cfg, dev)
     x16, x32 = _p15_inputs(cfg, dev)
     fn16 = _p15_layer_fn(_p15_cfg("bfloat16"), P15_SEQ, dev)
-    with torch.no_grad():
-        h = x16
-        for i in range(P15_LAYERS):
-            h = fn16({n: t[i].to(torch.bfloat16) for n, t in stacked.items()},
-                     h)
+    plain_calls = []
+
+    def plain(*a, **k):
+        plain_calls.append(1)
+        return fa.flash_attention_plain(*a, **k)
+    kernel, attention.flash_attention = attention.flash_attention, plain
+    reset_launch_counts()
+    try:
+        with torch.no_grad():
+            h = x16
+            for i in range(P15_LAYERS):
+                h = fn16({n: t[i].to(torch.bfloat16)
+                          for n, t in stacked.items()}, h)
+    finally:
+        attention.flash_attention = kernel
+    torch.cuda.synchronize()
+    launched = launch_counts().get("flash_attention", 0)
+    print(f"[15b] sequential bf16 reference: {len(plain_calls)} plain "
+          f"attention calls, {launched} kernel launches", flush=True)
+    check(len(plain_calls) == P15_LAYERS and launched == 0,
+          f"15b reference: {len(plain_calls)} plain calls, {launched} "
+          f"kernel launches")
     torch.save(h.cpu(), os.path.join(wdir, "seq_out.pt"))
     fn32 = _p15_layer_fn(cfg, P15_GRAD_SEQ, dev)
     leaves = {n: t.requires_grad_() for n, t in stacked.items()}
@@ -5229,28 +5259,40 @@ def _p15_pipeline(rank, mesh, dev, fails, rec) -> None:
     """15b on this rank."""
     import gc
     import torch
+    import torch.distributed as dist
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
     wdir = rec["wdir"]
     cfg32 = _p15_cfg("float32")
-    stacked = _p15_stack(cfg32, dev)
-    x16, x32 = _p15_inputs(cfg32, dev)
     stage = mesh.axis_index("pod")
+    per = P15_LAYERS // RANKS
+    mine = slice(per * stage, per * (stage + 1))
+    # the stage keeps only its own layers: the seeded stack is made whole
+    # (the sequential reference's values) and all but this block freed
+    stacked = _p15_stack(cfg32, dev)
+    whole = sum(t.numel() * t.element_size() for t in stacked.values())
+    block = {n: t[mine].clone() for n, t in stacked.items()}
+    del stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    x16, x32 = _p15_inputs(cfg32, dev)
     busy = []
     fn16 = _p15_layer_fn(_p15_cfg("bfloat16"), P15_SEQ, dev, busy)
-    s16 = {n: t.to(torch.bfloat16) for n, t in stacked.items()}
+    s16 = {n: t.to(torch.bfloat16) for n, t in block.items()}
     with torch.no_grad():      # one untimed pass: every stage warm
         pipeline_apply(fn16, s16, x16, mesh=mesh, stage_axis="pod",
-                       n_micro=P15_MICRO)
+                       n_micro=P15_MICRO, local=True)
     busy.clear()
     reset_launch_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with torch.no_grad(), mesh.counting() as cnt:
         y = pipeline_apply(fn16, s16, x16, mesh=mesh, stage_axis="pod",
-                           n_micro=P15_MICRO)
+                           n_micro=P15_MICRO, local=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak16 = torch.cuda.max_memory_allocated(dev)
     launches = Counter(launch_counts())
     want = torch.load(os.path.join(wdir, "seq_out.pt")).to(dev).float()
     err = float((y.float() - want).abs().max()) / float(want.abs().max())
@@ -5259,44 +5301,49 @@ def _p15_pipeline(rank, mesh, dev, fails, rec) -> None:
                           busy_s=sum(busy), calls=len(busy),
                           idle_share=1.0 - sum(busy) / wall,
                           bubble=bubble_fraction(RANKS, P15_MICRO),
-                          err=err, collectives=cnt.collectives)
+                          err=err, collectives=cnt.collectives,
+                          peak_gib=peak16 / 2**30,
+                          whole_gib=whole / 2 / 2**30)
     rec["launches"].update(launches)
     if not err <= BF16_TF_TOL:
         fails.append(f"15b stage {stage}: output {err:.3e} of max|ref|")
-    per = P15_LAYERS // RANKS
     if launches.get("flash_attention", 0) != per * P15_MICRO:
         fails.append(f"15b stage {stage}: flash_attention launches "
                      f"{dict(launches)}, want {per * P15_MICRO}")
-    # the float32 gradient of sum(y^2) with respect to the stacked leaves
+    # the float32 gradient of sum(y^2) with respect to the stage's block
     fn32 = _p15_layer_fn(cfg32, P15_GRAD_SEQ, dev)
-    leaves = {n: t.requires_grad_() for n, t in stacked.items()}
+    leaves = {n: t.requires_grad_() for n, t in block.items()}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     y = pipeline_apply(fn32, leaves, x32, mesh=mesh, stage_axis="pod",
-                       n_micro=P15_MICRO)
-    (y ** 2).sum().backward()
+                       n_micro=P15_MICRO, local=True)
+    loss = (y ** 2).sum()
+    # the gradient is the mean of the ranks' losses': all must be equal
+    hi, lo = (float(mesh.all_reduce(loss.detach().reshape(1), "pod",
+                                    op=op).wait()[0])
+              for op in (dist.ReduceOp.MAX, dist.ReduceOp.MIN))
+    loss.backward()
     torch.cuda.synchronize()
     gwall = time.perf_counter() - t0
+    peak32 = torch.cuda.max_memory_allocated(dev)
     ref = torch.load(os.path.join(wdir, f"grad{rank}.pt"))
-    mine = slice(per * stage, per * (stage + 1))
-    worst, leaf, elsewhere = 0.0, None, 0.0
+    worst, leaf = 0.0, None
     for n, t in leaves.items():
-        g = t.grad
-        e = float((g[mine].cpu() - ref["grads"][n]).abs().max()) / max(
+        e = float((t.grad.cpu() - ref["grads"][n]).abs().max()) / max(
             ref["scale"][n], 1e-30)
         if e > worst:
             worst, leaf = e, n
-        rest = torch.cat([g[:mine.start], g[mine.stop:]])
-        elsewhere = max(elsewhere, float(rest.abs().max()))
-    rec["15b_grad"] = dict(err=worst, leaf=leaf, elsewhere=elsewhere,
-                           wall_s=gwall)
+    rec["15b_grad"] = dict(err=worst, leaf=leaf, wall_s=gwall,
+                           loss_spread=hi - lo, peak_gib=peak32 / 2**30,
+                           whole_gib=whole / 2**30)
     if not worst <= P15_PIPE_TOL:
         fails.append(f"15b stage {stage}: gradient {leaf} {worst:.3e} of "
                      f"max|ref|")
-    if elsewhere != 0.0:
-        fails.append(f"15b stage {stage}: gradient {elsewhere} outside "
-                     f"its layers")
-    del stacked, leaves, y, ref, x16, x32
+    if hi != lo:
+        fails.append(f"15b stage {stage}: the ranks' losses differ by "
+                     f"{hi - lo}")
+    del block, leaves, y, ref, x16, x32
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5402,10 +5449,12 @@ def phase_last_modules(dev) -> dict:
               f"{b['wall_s'] * 1e3:.1f} ms, busy {b['busy_s'] * 1e3:.1f} ms "
               f"in {b['calls']} layer calls, idle share "
               f"{b['idle_share']:.3f} (bubble fraction {b['bubble']:.4f}), "
-              f"collectives {b['collectives']}; float32 gradient "
-              f"{g['err']:.3e} of max|ref| ({g['leaf']}), outside its "
-              f"layers {g['elsewhere']}, forward+backward {g['wall_s']:.2f} "
-              f"s wall", flush=True)
+              f"collectives {b['collectives']}, peak {b['peak_gib']:.2f} "
+              f"GiB (the whole bf16 stack {b['whole_gib']:.2f} GiB); "
+              f"float32 gradient {g['err']:.3e} of max|ref| ({g['leaf']}), "
+              f"losses' spread {g['loss_spread']}, forward+backward "
+              f"{g['wall_s']:.2f} s wall, peak {g['peak_gib']:.2f} GiB (the "
+              f"whole float32 stack {g['whole_gib']:.2f} GiB)", flush=True)
     launches = Counter()
     for r in recs:
         launches.update(r["launches"])
@@ -5438,11 +5487,32 @@ def phase_last_modules(dev) -> dict:
           flush=True)
     check(lm.get("status") == "ok", f"15c {P15_DRY_ARCH} cell: "
           f"{lm.get('error')}")
+    check(lm["roofline"].get("bytes_source") == "arguments+outputs",
+          f"15c {P15_DRY_ARCH} roofline {lm['roofline']}")
     print(f"[15] launches {dict(launches)}; phase 15 "
           f"{time.time() - t_phase:.1f} s (15a {recs[0]['15a_s']:.1f}, 15b "
           f"{recs[0]['15b_s']:.1f})", flush=True)
     torch.cuda.empty_cache()
     return dict(launches)
+
+
+def run_phases(names) -> int:
+    """Build the kernels and run only the named phases, in order
+    (``phase_<name>(dev)``; ``last_modules`` reads what ``sharded``
+    wrote): a quicker check of one path.  Prints no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    for name in names:
+        t0 = time.time()
+        got = globals()["phase_" + name](dev)
+        print(f"[only] {name}: {got} in {time.time() - t0:.1f} s",
+              flush=True)
+    return 0
 
 
 def main() -> int:
@@ -5550,4 +5620,6 @@ if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == "--dryrun":
         dryrun_cells()
         sys.exit(0)
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":
+        sys.exit(run_phases(sys.argv[2:]))
     sys.exit(main())

@@ -30,7 +30,11 @@ runs the step itself, in one process, on nothing:
   are the tuner's model, ``cost_model.counted_collectives``), its
   ``memory_analysis`` the rank's argument and output bytes (the
   temporaries are not counted: :data:`TEMP_BYTES_WHY`), and its HLO
-  collectives the counted ones.
+  collectives the counted ones.  The reference's ``bytes_per_device``
+  (and with it ``memory_s`` and ``bottleneck``) is the compiled step's
+  bytes accessed; the port's counts less (no activations, no
+  temporaries on an LM cell), so every roofline record names its
+  bytes in ``bytes_source``: :data:`LM_BYTES` or :data:`FFT_BYTES`.
 
 The reference's ``lower_s``/``compile_s`` are one number here,
 ``count_s``: the host seconds of the fake run.  Results are cached as
@@ -175,6 +179,10 @@ def _leaves(tree):
 
 # ``torch.distributed._tools.mem_tracker.MemTracker``, made for peak
 # memory under fake tensors, cannot run these steps
+# what a record's roofline ``bytes_per_device`` counts
+LM_BYTES = "arguments+outputs"
+FFT_BYTES = "cost_model"
+
 TEMP_BYTES_WHY = (
     "not counted: MemTracker registers gradient hooks on the parameters "
     "of each module it enters, and the port's parameters take none: the "
@@ -289,7 +297,8 @@ def lower_lm_cell(arch: str, shape_name: str, multi_pod: bool,
         "status": "ok", "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "n_devices": n_dev, "count_s": round(got["count_s"], 1),
-        "roofline": terms.to_dict(), "collectives": got["collectives"],
+        "roofline": {**terms.to_dict(), "bytes_source": LM_BYTES},
+        "collectives": got["collectives"],
         "memory": mem, "params": cfg.param_count(),
         "active_params": cfg.active_param_count(), "options": opts,
     }
@@ -337,7 +346,8 @@ def lower_fft_cell(grid_name: str, multi_pod: bool,
         "shape": grid_name,
         "mesh": "2x16x16" if multi_pod else "16x16", "n_devices": n_dev,
         "count_s": round(t_count, 1),
-        "roofline": terms.to_dict(), "collectives": got["collectives"],
+        "roofline": {**terms.to_dict(), "bytes_source": FFT_BYTES},
+        "collectives": got["collectives"],
         "comm_model_bytes": plan.comm_bytes_model(),
         "options": dataclasses.asdict(opts),
     }

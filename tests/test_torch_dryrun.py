@@ -245,6 +245,7 @@ def test_fft_cells_match_reference(reference, port, cell):
     r = got["roofline"]
     assert r["collective_bytes_per_device"] == want["comm_model_bytes"]
     assert r["bottleneck"] in ("compute", "memory", "collective")
+    assert r["bytes_source"] == "cost_model"
 
 
 @pytest.mark.parametrize("case", [f"{a}|{k}" for a in SMOKE for k in KINDS])

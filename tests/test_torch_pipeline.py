@@ -13,6 +13,13 @@ Two more schedules on the same ranks: one microbatch (the pipeline runs
 its stages one after another) and 4 layers over 4 stages (one layer a
 stage).  Each run's collectives are counted: M + P - 1 permutes (sent
 by every stage but the last) and one all-reduce, forward.
+
+Each case runs twice more: with ``local=True`` on only the rank's own
+block of the leaves (output and gradient bit-equal to the whole-stack
+run's), and with rank r's loss scaled by r + 1, whose gradient is the
+mean of the ranks' losses' (2.5 times the sequential one), as the
+docstring states.  Before each backward the ranks check, by a MAX and a
+MIN all-reduce of the scalar, that every rank's loss is the same.
 """
 
 import json
@@ -62,6 +69,7 @@ print("OK")
 WORKER = r"""
 import json, os, sys
 import numpy as np, torch
+import torch.distributed as dist
 from torch_ranks import join, leave
 from repro_torch.core import make_mesh
 from repro_torch.parallel.pipeline import pipeline_apply
@@ -90,10 +98,23 @@ for name, (layers, n_micro) in cases.items():
     with mesh.counting() as cnt:
         y = pipeline_apply(layer_fn, (w, b), x, mesh=mesh, stage_axis="pod",
                            n_micro=n_micro)
-    (y ** 2).sum().backward()
+    loss = (y ** 2).sum()
+    ends = [mesh.all_reduce(loss.detach().reshape(1), "pod", op=op).wait()
+            for op in (dist.ReduceOp.MAX, dist.ReduceOp.MIN)]
+    loss.backward()
     g = w.grad.numpy()
     per = layers // 4
     mine = slice(per * rec["stage"], per * (rec["stage"] + 1))
+    # the rank's own block only
+    wl = w.detach()[mine].clone().requires_grad_()
+    yl = pipeline_apply(layer_fn, (wl, b[mine]), x, mesh=mesh,
+                        stage_axis="pod", n_micro=n_micro, local=True)
+    (yl ** 2).sum().backward()
+    # ranks whose losses differ: the gradient of their mean
+    wm = w.detach().clone().requires_grad_()
+    ym = pipeline_apply(layer_fn, (wm, b), x, mesh=mesh, stage_axis="pod",
+                        n_micro=n_micro)
+    ((rank + 1) * (ym ** 2).sum()).backward()
     others = np.delete(g, np.arange(layers)[mine], axis=0)
     rec[name] = dict(
         y_err=float(np.abs(y.detach().numpy() - ref[name + "_y"]).max()),
@@ -101,6 +122,10 @@ for name, (layers, n_micro) in cases.items():
         g_err=float(np.abs(g[mine] - ref[name + "_g"][mine]).max()),
         g_others=float(np.abs(others).max()) if others.size else 0.0,
         g_scale=float(np.abs(ref[name + "_g"]).max()),
+        loss_spread=float(ends[0] - ends[1]),
+        local_y=bool(torch.equal(yl, y)),
+        local_g=bool(torch.equal(wl.grad, w.grad[mine])),
+        mean_g_err=float((wm.grad[mine] - 2.5 * w.grad[mine]).abs().max()),
         counts=cnt.counts)
     with torch.no_grad():
         z = pipeline_apply(layer_fn, (w, b), x, mesh=mesh, stage_axis="pod",
@@ -157,3 +182,22 @@ def test_pipeline_collectives(runs, case):
         if r["stage"] < RANKS - 1:
             want["collective-permute"] = n_micro + RANKS - 1
         assert r[case]["counts"] == want
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_pipeline_local_block_equals_whole_stack(runs, case):
+    """``local=True`` on the rank's own block computes what the whole
+    stack computes, bit for bit, and its gradient is the block's."""
+    for r in runs:
+        assert r[case]["local_y"] and r[case]["local_g"], r[case]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_pipeline_gradient_is_the_mean_of_the_ranks_losses(runs, case):
+    """The precondition the gradient rests on: every rank's loss is the
+    same (the MAX and MIN all-reduce agree).  Where rank r's loss is
+    scaled by r + 1, the gradient is the mean's: 2.5 times."""
+    for r in runs:
+        got = r[case]
+        assert got["loss_spread"] == 0.0, got
+        assert got["mean_g_err"] < GRAD_TOL * 2.5 * got["g_scale"], got
