@@ -35,6 +35,7 @@ from repro_torch.core import distributed
 from repro_torch.core.decomposition import Decomposition, spec_slices
 from repro_torch.core.distributed import FFTOptions
 from repro_torch.device import resolve_device
+from repro_torch.obs.tracer import span
 
 
 @dataclasses.dataclass
@@ -236,9 +237,14 @@ class Croft3D:
 
     # -- transforms ----------------------------------------------------------
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._forward(x)
+        with span("croft3d:forward", "plan", problem=self.problem):
+            return self._forward(x)
 
     def inverse(self, y: torch.Tensor) -> torch.Tensor:
+        with span("croft3d:inverse", "plan", problem=self.problem):
+            return self._inverse(y)
+
+    def _inverse(self, y: torch.Tensor) -> torch.Tensor:
         self._check(y, self.output_sharding, self.spectrum_shape)
         if self.problem == "r2c":
             from repro_torch.core import rfft
@@ -286,8 +292,10 @@ class Croft3D:
         h(kz=Nyquist)``, that plane real and 2-D-even (e.g. a
         kz-independent low-pass over (kx, ky)).
         """
-        hh = h if alpha == 1.0 else h * alpha
-        return self._forward(x, hh, fold)
+        with span("croft3d:forward_filtered", "plan",
+                  problem=self.problem):
+            hh = h if alpha == 1.0 else h * alpha
+            return self._forward(x, hh, fold)
 
     def forward_batched(self, x: torch.Tensor) -> torch.Tensor:
         """``forward`` over a (B, Nx, Ny, Nz) stack: the executor carries
@@ -417,19 +425,28 @@ def poisson_solve(rhs: torch.Tensor, plan: Croft3D,
     """
     nx, ny, nz = plan.shape
     dev = plan.device
-    kx = torch.fft.fftfreq(nx, d=box / (2 * math.pi * nx), device=dev)
-    ky = torch.fft.fftfreq(ny, d=box / (2 * math.pi * ny), device=dev)
-    if plan.problem == "r2c":
-        kz = torch.fft.rfftfreq(nz, d=box / (2 * math.pi * nz), device=dev)
-    else:
-        kz = torch.fft.fftfreq(nz, d=box / (2 * math.pi * nz), device=dev)
-    if plan.mesh is not None:
-        sx, sy, sz = plan.output_sharding
-        kx, ky, kz = kx[sx], ky[sy], kz[sz]
-    k2 = (kx[:, None, None] ** 2 + ky[None, :, None] ** 2
-          + kz[None, None, :] ** 2)
-    inv_k2 = torch.where(k2 == 0, 0.0,
-                         -1.0 / torch.where(k2 == 0, 1.0, k2))
-    u_hat = plan.forward_filtered(rhs.to(plan.input_dtype),
-                                  inv_k2.to(plan.dtype))
-    return plan.inverse(u_hat)
+    with span("poisson:solve", "plan", problem=plan.problem):
+        with span("poisson:multiplier", "epilogue", dev):
+            kx = torch.fft.fftfreq(nx, d=box / (2 * math.pi * nx),
+                                   device=dev)
+            ky = torch.fft.fftfreq(ny, d=box / (2 * math.pi * ny),
+                                   device=dev)
+            if plan.problem == "r2c":
+                kz = torch.fft.rfftfreq(nz, d=box / (2 * math.pi * nz),
+                                        device=dev)
+            else:
+                kz = torch.fft.fftfreq(nz, d=box / (2 * math.pi * nz),
+                                       device=dev)
+            if plan.mesh is not None:
+                sx, sy, sz = plan.output_sharding
+                kx, ky, kz = kx[sx], ky[sy], kz[sz]
+            k2 = (kx[:, None, None] ** 2 + ky[None, :, None] ** 2
+                  + kz[None, None, :] ** 2)
+            inv_k2 = torch.where(k2 == 0, 0.0,
+                                 -1.0 / torch.where(k2 == 0, 1.0, k2))
+            h = inv_k2.to(plan.dtype)
+        # h lives exactly as long as the call's argument did: the
+        # multiplier in the plan's dtype dies before the inverse
+        u_hat = plan.forward_filtered(rhs.to(plan.input_dtype), h)
+        del h
+        return plan.inverse(u_hat)

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.device import full_fp32_matmul
+from repro_torch.obs.tracer import span
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -155,7 +156,8 @@ def fft3d_local(x: torch.Tensor, sign: int = -1, *, impl="matmul",
 def _fft3d(x, sign, impl, plan_cache, norm):
     for stage, ax in enumerate((-3, -2, -1)):
         stage_impl = impl[stage] if isinstance(impl, (tuple, list)) else impl
-        x = fft_1d(x, ax, sign, impl=stage_impl, plan_cache=plan_cache)
+        with span("stage:fft", "fft"):
+            x = fft_1d(x, ax, sign, impl=stage_impl, plan_cache=plan_cache)
     return apply_norm(x, sign, norm)
 
 
@@ -178,12 +180,17 @@ class _Local3D:
 
 
 def apply_norm(x: torch.Tensor, sign: int, norm: Optional[str]) -> torch.Tensor:
-    """Paper convention (eq. 2): forward unnormalized, inverse 1/(NxNyNz)."""
+    """Paper convention (eq. 2): forward unnormalized, inverse 1/(NxNyNz).
+    A scale is an ``inverse:normalize`` span."""
     nxyz = x.shape[-3] * x.shape[-2] * x.shape[-1]
     if norm is None or norm == "backward":
-        return x / nxyz if sign == +1 else x
+        if sign != +1:
+            return x
+        with span("inverse:normalize", "epilogue", x.device):
+            return x / nxyz
     if norm == "ortho":
-        return x / math.sqrt(nxyz)
+        with span("inverse:normalize", "epilogue", x.device):
+            return x / math.sqrt(nxyz)
     if norm == "none":
         return x
     raise ValueError(f"unknown norm {norm!r}")

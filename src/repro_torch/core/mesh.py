@@ -36,6 +36,14 @@ wire (the port's stand-in for counting collectives in compiled HLO): one
 :meth:`Mesh.exchange` and one ``"all-reduce"`` per
 :meth:`Mesh.all_reduce` (a sum or a max), with the bytes this rank
 hands them.
+
+An NCCL group makes its communicator at its first collective.  The
+host seconds of the mesh's folded groups (``dist.new_group``) and of
+the first collective on each group go into the process registry's
+``mesh_comm_init_seconds`` counter (one clock read per group, once).
+:meth:`Mesh.all_to_all` and :meth:`Mesh.exchange` open the executor's
+``transpose:pack``/``transpose:collective``/``transpose:unpack`` spans
+(``repro_torch.obs.tracer.span``).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -52,6 +61,23 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.core.decomposition import spec_slices
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as metrics_lib
+from repro_torch.obs.tracer import span
+
+COMM_INIT = "mesh_comm_init_seconds"
+_WARM = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _comm_init_timed():
+    """Add the scope's host seconds to ``mesh_comm_init_seconds``."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        metrics_lib.get_registry().counter(
+            COMM_INIT, "host seconds of NCCL groups and their communicators"
+        ).inc(time.perf_counter() - t)
 
 
 class Pending:
@@ -122,7 +148,9 @@ class Mesh:
                           grid.reshape(-1).tolist()):
             self._coords[r] = dict(zip(self.axis_names, idx))
             self._rank_at[idx] = r
-        self._folded = self._fold_groups()
+        self._warm = set()
+        with _comm_init_timed():
+            self._folded = self._fold_groups()
         self._count: Optional[CollectiveCount] = None
 
     @contextlib.contextmanager
@@ -139,6 +167,16 @@ class Mesh:
     def _counted(self, kind: str, nbytes: int) -> None:
         if self._count is not None:
             self._count.add(kind, nbytes)
+
+    def _first_use(self, group):
+        """The scope of a collective on ``group``: the first on each group
+        (where NCCL makes its communicator) is timed into
+        ``mesh_comm_init_seconds``, every later one gets a shared null
+        context."""
+        if group in self._warm:
+            return _WARM
+        self._warm.add(group)
+        return _comm_init_timed()
 
     def _fold_groups(self) -> dict:
         """One process group per line of every set of two or more axes,
@@ -272,7 +310,8 @@ class Mesh:
         """Tiled all-to-all over ``axis`` (``jax.lax.all_to_all(...,
         tiled=True)``): ``split_axis`` is cut into P chunks, chunk j goes
         to rank j, and the received chunks are concatenated along
-        ``concat_axis`` in source order."""
+        ``concat_axis`` in source order.  Its unpack span opens after
+        the wait."""
         p = self.axis_size(axis)
         if p == 1:
             return Pending.done(x)
@@ -282,27 +321,35 @@ class Mesh:
                              f"divisible by {p}")
         piece = list(shape)
         piece[split_axis] //= p
-        chunks = (x.reshape(shape[:split_axis] + [p, piece[split_axis]]
-                            + shape[split_axis + 1:])
-                  .movedim(split_axis, 0))
-        order = self._group_order(axis) if isinstance(axis, tuple) else None
-        if order is not None:
-            # chunk j goes to the group rank of index j, and what group
-            # rank order[j] sends lands at index j
-            chunks = chunks[torch.tensor(sorted(range(p), key=order.__getitem__),
-                                         device=x.device)]
-        chunks = chunks.contiguous()
-        recv = torch.empty_like(chunks)
-        self._counted("all-to-all", chunks.numel() * chunks.element_size())
-        work = dist.all_to_all_single(recv, chunks, group=self.group(axis),
-                                      async_op=True)
+        with span("transpose:pack", "pack", self.device):
+            chunks = (x.reshape(shape[:split_axis] + [p, piece[split_axis]]
+                                + shape[split_axis + 1:])
+                      .movedim(split_axis, 0))
+            order = (self._group_order(axis) if isinstance(axis, tuple)
+                     else None)
+            if order is not None:
+                # chunk j goes to the group rank of index j, and what
+                # group rank order[j] sends lands at index j
+                chunks = chunks[torch.tensor(
+                    sorted(range(p), key=order.__getitem__),
+                    device=x.device)]
+            chunks = chunks.contiguous()
+        nbytes = chunks.numel() * chunks.element_size()
+        group = self.group(axis)
+        with span("transpose:collective", "collective", bytes=nbytes):
+            recv = torch.empty_like(chunks)
+            self._counted("all-to-all", nbytes)
+            with self._first_use(group):
+                work = dist.all_to_all_single(recv, chunks, group=group,
+                                              async_op=True)
 
         def finish():
-            out = list(piece)
-            out[concat_axis] *= p
-            got = recv if order is None else recv[torch.tensor(
-                order, device=recv.device)]
-            return got.movedim(0, concat_axis).reshape(out)
+            with span("transpose:unpack", "unpack", self.device):
+                out = list(piece)
+                out[concat_axis] *= p
+                got = recv if order is None else recv[torch.tensor(
+                    order, device=recv.device)]
+                return got.movedim(0, concat_axis).reshape(out)
         return Pending([work], finish)
 
     def all_reduce(self, x: torch.Tensor, axis,
@@ -317,8 +364,9 @@ class Mesh:
         if not x.is_contiguous():
             raise ValueError("all_reduce sums in place: x must be contiguous")
         self._counted("all-reduce", x.numel() * x.element_size())
-        work = dist.all_reduce(x, op=op, group=self.group(axis),
-                               async_op=True)
+        group = self.group(axis)
+        with self._first_use(group):
+            work = dist.all_reduce(x, op=op, group=group, async_op=True)
         return Pending([work], lambda: x)
 
     def exchange(self, sends: Sequence, recvs: Sequence, axis) -> Pending:
@@ -328,16 +376,22 @@ class Mesh:
         hold the received data once the result is waited on."""
         group = self.group(axis)
         ops, landings = [], []
-        for t, dst in sends:
-            self._counted("collective-permute", t.numel() * t.element_size())
-            ops.append(dist.P2POp(dist.isend, self._to_wire(t),
-                                  dist.get_global_rank(group, dst), group))
-        for buf, src in recvs:
-            wire = self._wire_buffer(buf)
-            landings.append((wire, buf))
-            ops.append(dist.P2POp(dist.irecv, wire,
-                                  dist.get_global_rank(group, src), group))
-        works = dist.batch_isend_irecv(ops) if ops else []
+        nbytes = sum(t.numel() * t.element_size() for t, _ in sends)
+        with span("transpose:collective", "collective", bytes=nbytes):
+            for t, dst in sends:
+                self._counted("collective-permute",
+                              t.numel() * t.element_size())
+                ops.append(dist.P2POp(dist.isend, self._to_wire(t),
+                                      dist.get_global_rank(group, dst),
+                                      group))
+            for buf, src in recvs:
+                wire = self._wire_buffer(buf)
+                landings.append((wire, buf))
+                ops.append(dist.P2POp(dist.irecv, wire,
+                                      dist.get_global_rank(group, src),
+                                      group))
+            with self._first_use(group):
+                works = dist.batch_isend_irecv(ops) if ops else []
 
         def finish():
             for wire, buf in landings:
@@ -397,7 +451,9 @@ class Mesh:
                            device=blk.device)
         self.reshard_bytes += plan.sent * blk.element_size()
         self._counted("all-to-all", send.numel() * send.element_size())
-        dist.all_to_all_single(recv, send, plan.recv_sizes, plan.send_sizes)
+        with self._first_use(None):
+            dist.all_to_all_single(recv, send, plan.recv_sizes,
+                                   plan.send_sizes)
         return plan.unpack(recv, blk)
 
     def _move_plan(self, blk_shape: tuple, shape: tuple, src_spec: tuple,
@@ -484,7 +540,8 @@ class Mesh:
                       for r in range(self.size)]
         recv = blk.new_empty(sum(recv_sizes))
         self._counted("all-to-all", send.numel() * send.element_size())
-        dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
+        with self._first_use(None):
+            dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
         if me != 0:
             return None
         out = torch.empty(shape, dtype=blk.dtype)

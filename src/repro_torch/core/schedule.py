@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import local_fft
 from repro_torch.core.mesh import Pending
+from repro_torch.obs.tracer import span
 from repro_torch.resil import inject as inject_lib
 
 AxisName = Union[str, tuple]
@@ -583,8 +584,9 @@ def _ring_transpose(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
     from repro_torch.kernels import transpose_pack
     p = mesh.axis_size(axis)
     idx = mesh.axis_index(axis)
-    pieces = _pack_pieces(blk, mesh, axis, split_axis)
-    buf = _landing(pieces)
+    with span("transpose:pack", "pack", mesh.device):
+        pieces = _pack_pieces(blk, mesh, axis, split_axis)
+        buf = _landing(pieces)
     # slot order [round 0, round P-1, ..., round 1] (the reference's
     # [recv[0]] + recv[:0:-1]) puts the piece from src (idx + m) % P at
     # slot m; rotating by -idx restores src order.
@@ -593,13 +595,14 @@ def _ring_transpose(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
     wire = mesh.exchange(sends, recvs, axis)
 
     def finish():
-        if round_cb is not None:
-            for s in range(1, p):
-                slot = buf[p - s]
-                piece = round_cb(s, slot)
-                if piece is not slot:
-                    slot.copy_(piece)
-        return transpose_pack.unpack_pieces(buf, concat_axis, -idx)
+        with span("transpose:unpack", "unpack", mesh.device):
+            if round_cb is not None:
+                for s in range(1, p):
+                    slot = buf[p - s]
+                    piece = round_cb(s, slot)
+                    if piece is not slot:
+                        slot.copy_(piece)
+            return transpose_pack.unpack_pieces(buf, concat_axis, -idx)
     return Pending([wire], finish)
 
 
@@ -614,12 +617,15 @@ def _pairwise_transpose(blk: torch.Tensor, mesh, axis: AxisName,
     from repro_torch.kernels import transpose_pack
     p = mesh.axis_size(axis)
     idx = mesh.axis_index(axis)
-    pieces = _pack_pieces(blk, mesh, axis, split_axis)
-    buf = _landing(pieces)
+    with span("transpose:pack", "pack", mesh.device):
+        pieces = _pack_pieces(blk, mesh, axis, split_axis)
+        buf = _landing(pieces)
     for s in range(1, p):
         mesh.exchange([(pieces[s], (idx + s) % p)],
                       [(buf[p - s], (idx - s) % p)], axis).wait()
-    return Pending.done(transpose_pack.unpack_pieces(buf, concat_axis, -idx))
+    with span("transpose:unpack", "unpack", mesh.device):
+        return Pending.done(transpose_pack.unpack_pieces(buf, concat_axis,
+                                                         -idx))
 
 
 def _all_to_all(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
@@ -653,7 +659,9 @@ def stage_pre(blk: torch.Tensor, st: Stage, sign: int, opts, off: int = 0,
     for op in st.prologue:
         blk = op.apply(blk, opts, ctx, off)
     if st.fft_axis is not None:
-        blk = _fft_along(blk, st.fft_axis + off, sign, opts, st.impl_stage)
+        with span("stage:fft", "fft"):
+            blk = _fft_along(blk, st.fft_axis + off, sign, opts,
+                             st.impl_stage)
     for op in st.epilogue:
         blk = op.apply(blk, opts, ctx, off)
     return blk
@@ -732,7 +740,10 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
             nxt = pre(chunks[i + 1]) if i + 1 < k else None
             pending.append(comm(inflight))
             inflight = nxt
-    return torch.cat([p.wait() for p in pending], dim=ax)
+    # the waits (and their unpacks) first, so the cat's span is the cat's
+    parts = [p.wait() for p in pending]
+    with span("stage:cat", "unpack", blk.device, chunks=k):
+        return torch.cat(parts, dim=ax)
 
 
 def run_schedule(blk: torch.Tensor, sched: Schedule, opts, mesh,

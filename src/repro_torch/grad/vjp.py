@@ -54,6 +54,7 @@ import torch
 from repro_torch.core import schedule as schedule_lib
 from repro_torch.grad.adjoint import (adjoint_schedule, fold_dc_plane_t,
                                       unfold_dc_plane_t)
+from repro_torch.obs.tracer import span
 
 
 def needs_grad(*ts) -> bool:
@@ -68,7 +69,11 @@ def conj(t: torch.Tensor) -> torch.Tensor:
 
 
 def _scaled(y: torch.Tensor, scale) -> torch.Tensor:
-    return y if scale is None else y * scale
+    """``y`` times a plan's norm factor (an ``inverse:normalize`` span)."""
+    if scale is None:
+        return y
+    with span("inverse:normalize", "epilogue", y.device):
+        return y * scale
 
 
 def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:

@@ -30,6 +30,7 @@ import torch
 from repro_torch.core import local_fft
 from repro_torch.core.decomposition import _mesh_axis_sizes
 from repro_torch.core.distributed import FFTOptions, _norm_scale
+from repro_torch.obs.tracer import span
 from repro_torch.real import packing
 from repro_torch.real.pipeline import (PAIR_AXIS, build_packed_forward,
                                        build_packed_inverse, fold_dc_plane,
@@ -91,14 +92,17 @@ def _rfft_packed(x, opts, norm):
     pair_axis = _choose_pair_axis(nx, ny)
     fold = nz % 2 == 0  # odd Nz has no Nyquist bin; carry all Nh bins
     c = packing.pack_two(x, pair_axis)
-    C = local_fft.fft_1d(c, -1, -1, impl=opts.stage_impl(0),
-                         plan_cache=opts.plan_cache)
+    with span("stage:fft", "fft"):
+        C = local_fft.fft_1d(c, -1, -1, impl=opts.stage_impl(0),
+                             plan_cache=opts.plan_cache)
     S = packing.unpack_two(C, pair_axis, nh=nz // 2 + 1, fold=fold,
                            use_pallas=opts.stage_impl(0) == "pallas")
-    S = local_fft.fft_1d(S, -2, -1, impl=opts.stage_impl(1),
-                         plan_cache=opts.plan_cache)
-    S = local_fft.fft_1d(S, -3, -1, impl=opts.stage_impl(2),
-                         plan_cache=opts.plan_cache)
+    with span("stage:fft", "fft"):
+        S = local_fft.fft_1d(S, -2, -1, impl=opts.stage_impl(1),
+                             plan_cache=opts.plan_cache)
+    with span("stage:fft", "fft"):
+        S = local_fft.fft_1d(S, -3, -1, impl=opts.stage_impl(2),
+                             plan_cache=opts.plan_cache)
     # the fold stays valid under the (linear) y/x transforms; unfold the
     # DC/Nyquist plane once, at the end, like the distributed pipeline
     y = unfold_dc_plane(S) if fold else S
@@ -162,16 +166,20 @@ def _irfft_packed(y, nz, opts, norm):
     pair_axis = _choose_pair_axis(nx, ny)
     fold = nz % 2 == 0
     t = fold_dc_plane(y, nz) if fold else y
-    t = local_fft.fft_1d(t, -3, +1, impl=opts.stage_impl(0),
-                         plan_cache=opts.plan_cache)
-    t = local_fft.fft_1d(t, -2, +1, impl=opts.stage_impl(1),
-                         plan_cache=opts.plan_cache)
+    with span("stage:fft", "fft"):
+        t = local_fft.fft_1d(t, -3, +1, impl=opts.stage_impl(0),
+                             plan_cache=opts.plan_cache)
+    with span("stage:fft", "fft"):
+        t = local_fft.fft_1d(t, -2, +1, impl=opts.stage_impl(1),
+                             plan_cache=opts.plan_cache)
     C = packing.repack_halves(t, pair_axis, nz, folded=fold,
                               use_pallas=opts.stage_impl(2) == "pallas")
-    c = local_fft.fft_1d(C, -1, +1, impl=opts.stage_impl(2),
-                         plan_cache=opts.plan_cache)
+    with span("stage:fft", "fft"):
+        c = local_fft.fft_1d(C, -1, +1, impl=opts.stage_impl(2),
+                             plan_cache=opts.plan_cache)
     x = packing.split_pairs(c, pair_axis)
-    return x * _norm_scale((nx, ny, nz), +1, norm)
+    with span("inverse:normalize", "epilogue", x.device):
+        return x * _norm_scale((nx, ny, nz), +1, norm)
 
 
 class _LocalIrfft:

@@ -50,6 +50,7 @@ from repro_torch.core.distributed import FFTOptions, _norm_scale
 from repro_torch.core.schedule import (ExtraComm, PackTwo, RepackHalves,
                                        Schedule, SplitPairs, Stage, UnpackTwo,
                                        layout_for)
+from repro_torch.obs.tracer import span
 from repro_torch.real import packing
 
 #: grid dim two real lines are paired along, per decomposition kind
@@ -193,12 +194,13 @@ def unfold_dc_plane(packed: torch.Tensor, gather=None,
     the 2-D Hermitian split recovers both.  Expressed over the trailing
     axes only, so a batched spectrum unfolds all its planes in one pass.
     """
-    g = packed[..., 0]
-    rev = _reversed_plane(g, gather, sl)
-    dc = 0.5 * (g + rev)
-    nyq = -0.5j * (g - rev)
-    return torch.cat([dc[..., None], packed[..., 1:], nyq[..., None]],
-                     dim=-1)
+    with span("real:unfold_dc_plane", "unpack", packed.device):
+        g = packed[..., 0]
+        rev = _reversed_plane(g, gather, sl)
+        dc = 0.5 * (g + rev)
+        nyq = -0.5j * (g - rev)
+        return torch.cat([dc[..., None], packed[..., 1:], nyq[..., None]],
+                         dim=-1)
 
 
 def _hermitian_plane(p: torch.Tensor, gather=None, sl=None) -> torch.Tensor:
@@ -214,17 +216,18 @@ def fold_dc_plane(y: torch.Tensor, nz: int, gather=None,
     """Inverse of :func:`unfold_dc_plane`, with the DC/Nyquist planes first
     projected onto their Hermitian parts so that arbitrary half spectra
     invert exactly like ``numpy.fft.irfftn``."""
-    nz2 = nz // 2
-    if gather is None:
-        dc = _hermitian_plane(y[..., 0])
-        nyq = _hermitian_plane(y[..., nz2])
-    else:
-        # both planes in one gather: (..., 2, nx, ny)
-        both = _hermitian_plane(torch.stack([y[..., 0], y[..., nz2]], -3),
-                                gather, sl)
-        dc, nyq = both.unbind(-3)
-    g = dc + 1j * nyq
-    return torch.cat([g[..., None], y[..., 1:nz2]], dim=-1)
+    with span("real:fold_dc_plane", "pack", y.device):
+        nz2 = nz // 2
+        if gather is None:
+            dc = _hermitian_plane(y[..., 0])
+            nyq = _hermitian_plane(y[..., nz2])
+        else:
+            # both planes in one gather: (..., 2, nx, ny)
+            both = _hermitian_plane(torch.stack([y[..., 0], y[..., nz2]], -3),
+                                    gather, sl)
+            dc, nyq = both.unbind(-3)
+        g = dc + 1j * nyq
+        return torch.cat([g[..., None], y[..., 1:nz2]], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -282,11 +282,18 @@ def test_meshless_plan_gets_only_the_e2e_span(problem):
     try:
         y, summary = instrument.trace_forward(plan, x, tracer=tracer,
                                               iters=1)
-        names = [e["name"] for e in tracer.events()]
+        events = tracer.events()
         meta = tracer.meta()["attribution"]
     finally:
         obs.disable()
-    assert names == ["e2e"]
+    # the attribution's own spans (each names its plan) are the e2e one;
+    # the plan's hot-path spans lie inside it
+    assert [e["name"] for e in events if "plan" in e["args"]] == ["e2e"]
+    (e2e,) = [e for e in events if e["name"] == "e2e"]
+    inner = [e for e in events if e is not e2e]
+    assert {e["name"] for e in inner} >= {"croft3d:forward", "stage:fft"}
+    assert all(e2e["ts"] <= e["ts"] and e["ts"] + e["dur"]
+               <= e2e["ts"] + e2e["dur"] for e in inner)
     assert summary["stages"] == [] and summary["overall"] is None
     assert "note" in summary and summary["plan"] == "meshless"
     assert meta == [summary]
