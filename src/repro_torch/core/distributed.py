@@ -61,11 +61,13 @@ class FFTOptions:
                    ring/pairwise run over single mesh axes only — folded
                    axes and the cell regroup communicator are rejected by
                    ``Decomposition.validate``.
-    overlap_mode   how K >= 2 chunks are emitted: "pipelined" (chunk i+1's
-                   FFT is issued before chunk i's collective) | "unrolled"
-                   (chunk after chunk); or a 3-tuple of those, one per
-                   pipeline stage (indexed like ``local_impl``).  Both
-                   orders run identical ops, so results are bitwise equal.
+    overlap_mode   "pipelined" | "unrolled", or a 3-tuple of those, one per
+                   pipeline stage (indexed like ``local_impl``): the
+                   reference's two emission orders of K >= 2 chunks, kept
+                   for plan tokens and the tuner's candidates.  The port
+                   issues both as one order, chunk after chunk, each
+                   chunk's collective posted before the next chunk's FFT
+                   (``schedule.run_stage``); results are bitwise equal.
     """
 
     overlap_k: int = 2

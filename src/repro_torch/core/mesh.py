@@ -94,8 +94,14 @@ class Pending:
     def done(cls, value: torch.Tensor) -> "Pending":
         return cls((), lambda: value)
 
+    @property
+    def in_flight(self) -> bool:
+        """Whether a collective is posted and not yet waited on."""
+        return bool(self._works)
+
     def wait(self) -> torch.Tensor:
-        for w in self._works:
+        works, self._works = self._works, []
+        for w in works:
             w.wait()
         return self._finish()
 

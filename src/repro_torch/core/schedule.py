@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import local_fft
 from repro_torch.core.mesh import Pending
+from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs.tracer import span
 from repro_torch.resil import inject as inject_lib
 
@@ -543,6 +544,9 @@ class Schedule:
 # the executor
 # ---------------------------------------------------------------------------
 
+CHUNKS_OVERLAPPED = "stage_chunks_overlapped"
+
+
 def _fft_along(blk: torch.Tensor, axis: int, sign: int, opts,
                stage: int = 0) -> torch.Tensor:
     return local_fft.fft_1d(blk, axis, sign, impl=opts.stage_impl(stage),
@@ -707,13 +711,20 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
     for leading batch dims).  Owns the K-chunked overlap and the silent
     fallback to one chunk when ``chunk_axis`` is not divisible by K.
 
-    With K >= 2 chunks the stage runs as a depth-1 software pipeline
-    (``opts.stage_overlap``: "pipelined", the default): chunk i+1's
-    FFT is issued *before* chunk i's collective, which is in flight
-    while the FFT runs and is waited on only where its result is
-    consumed.  ``"unrolled"`` issues chunk after chunk (FFT, collective,
-    FFT, collective).  Both run the same ops on the same chunks, so their
-    outputs are bitwise identical.
+    With K >= 2 chunks, chunk i's compute leg, pack and collective are
+    queued before chunk i+1's compute leg, and every wait (with its
+    unpack) follows the last post.  The compute stream runs kernels in
+    the order they are queued, and a collective's stream waits for all
+    that was queued before its post: chunk i's transfer then runs while
+    chunk i+1 is transformed and packed, and the last chunk's transfer
+    while the earlier chunks are unpacked.  (Queuing chunk i+1's FFT
+    ahead of chunk i's pack, the reference's "pipelined" dataflow, would
+    hold chunk i's transfer behind that FFT.)  Both ``opts.stage_overlap``
+    modes therefore issue this one order; they stay distinct names for
+    plan tokens and the tuner's candidates.  A pairwise stage waits on
+    each of its rounds inside its collective leg and overlaps nothing.
+    Every chunk compute leg queued while an earlier chunk's collective is
+    in flight adds one to the ``stage_chunks_overlapped`` counter.
     """
     ctx = ctx or {}
 
@@ -729,17 +740,15 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
     ax = st.chunk_axis + off
     if k <= 1 or blk.shape[ax] % k:
         return comm(pre(blk)).wait()
-    chunks = torch.chunk(blk, k, dim=ax)
-    if opts.stage_overlap(st.impl_stage) == "unrolled":
-        pending = [comm(pre(c)) for c in chunks]
-    else:
-        # pipelined: while chunk i is on the wire, chunk i+1 is in the FFT
-        pending = []
-        inflight = pre(chunks[0])
-        for i in range(k):
-            nxt = pre(chunks[i + 1]) if i + 1 < k else None
-            pending.append(comm(inflight))
-            inflight = nxt
+    overlapped = metrics_lib.get_registry().counter(
+        CHUNKS_OVERLAPPED, "chunk compute legs queued while an earlier "
+        "chunk's collective of the same stage was in flight")
+    pending = []
+    for c in torch.chunk(blk, k, dim=ax):
+        if any(p.in_flight for p in pending):
+            overlapped.inc()
+        # a chunk's compute output dies once its pack is queued
+        pending.append(comm(pre(c)))
     # the waits (and their unpacks) first, so the cat's span is the cat's
     parts = [p.wait() for p in pending]
     with span("stage:cat", "unpack", blk.device, chunks=k):

@@ -63,6 +63,9 @@ import numpy as np, torch, torch.distributed as dist
 from torch_ranks import join, leave
 from repro_torch.core import (Croft3D, Decomposition, FFTOptions,
                               local_block, make_mesh)
+from repro_torch.core.schedule import CHUNKS_OVERLAPPED
+from repro_torch.obs import metrics
+overlapped = metrics.get_registry().counter(CHUNKS_OVERLAPPED)
 rank, port, npz, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 join(rank, port, 4)
 ref = np.load(npz)
@@ -89,11 +92,13 @@ for kind, (sizes, names) in %r.items():
                                       overlap_mode=mode, output_layout=layout,
                                       local_impl="pallas")
                     plan = Croft3D(shape, mesh, dec, opts)
+                    before = overlapped.value
                     y = plan.forward(xl)
                     xb = plan.inverse(y)
                     outs[(impl, k, mode)] = y
                     records.append(dict(
                         kind=kind, layout=layout, impl=impl, k=k, mode=mode,
+                        overlapped=overlapped.value - before,
                         err=float(np.abs(y.numpy() - yr).max()) / scale,
                         inv_err=float(np.abs(xb.numpy() - xbr).max()),
                         rt=float(np.abs(xb.numpy() - xl.numpy()).max())))
@@ -177,6 +182,25 @@ def test_transpose_impls_bitwise_equal(port_records, kind, layout):
         assert summary["bitwise_impls"], summary
         # chunking and emission order change no row's arithmetic either
         assert summary["bitwise_all"], summary
+
+
+# comm stages of a forward plus its inverse
+COMM_STAGES = {("pencil", "natural"): 8, ("pencil", "spectral"): 4,
+               ("slab", "natural"): 4, ("slab", "spectral"): 2}
+
+
+@pytest.mark.parametrize("kind,layout", PAIRS)
+def test_chunks_overlapped_counter(port_records, kind, layout):
+    """``stage_chunks_overlapped`` grows by K - 1 a comm stage on every
+    rank (4 a pencil spectral round trip at K = 2), and not at all with
+    K = 1 or the blocking pairwise rounds."""
+    runs = [r for recs in port_records for r in recs
+            if r["kind"] == kind and r.get("layout") == layout
+            and r["impl"] not in ("*", "ppermute")]
+    for r in runs:
+        want = (0 if r["impl"] == "pairwise"
+                else COMM_STAGES[(kind, layout)] * (r["k"] - 1))
+        assert r["overlapped"] == want, r
 
 
 @pytest.mark.parametrize("kind,layout", PAIRS)

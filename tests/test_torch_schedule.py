@@ -6,6 +6,7 @@ tokens, and the same validation errors."""
 import math
 
 import pytest
+import torch
 
 from repro.core import Decomposition as RefDecomposition
 from repro.core import FFTOptions as RefOptions
@@ -16,6 +17,8 @@ from repro_torch.core import Croft3D, Decomposition, FFTOptions
 from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.decomposition import pencil_grid_for, spec_slices
 from repro_torch.core.distributed import build_schedule
+from repro_torch.core.mesh import Pending
+from repro_torch.obs import metrics as metrics_lib
 
 AXES = {"pencil": ("data", "model"), "slab": ("p",), "cell": ("a", "b", "c"),
         "pencil-folded": (("a", "b"), "c")}
@@ -238,3 +241,99 @@ def test_croft3d_rejects_unported_and_bad_problems():
         Croft3D((8, 8, 8), problem="c2c_grad", device="cpu")
     with pytest.raises(ValueError, match="Decomposition"):
         Croft3D((8, 8, 8), _FakeMesh({"p": 2}), device="cpu")
+
+
+class _Posted:
+    """A posted collective's work handle: its wait is logged."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def wait(self):
+        self.log.append("wait")
+
+
+class _LoopbackMesh:
+    """One rank of a two-rank axis whose peer holds the same block: every
+    post and every wait is logged, and the data lands at the wait."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, log):
+        self.log = log
+
+    def axis_size(self, axis):
+        return 2
+
+    def axis_index(self, axis):
+        return 0
+
+    def all_to_all(self, x, axis, split_axis, concat_axis):
+        self.log.append("post")
+        mine = x.chunk(2, split_axis)[0]
+        return Pending([_Posted(self.log)],
+                       lambda: torch.cat([mine, mine], concat_axis))
+
+    def exchange(self, sends, recvs, axis):
+        self.log.append("post")
+
+        def land():
+            for (t, _), (buf, _) in zip(sends, recvs):
+                buf.copy_(t)
+        return Pending([_Posted(self.log)], land)
+
+
+# paper step 1-4 on an x-pencil: FFT along x, then x <-> y, chunked on z
+XY_STAGE = schedule_lib.Stage("x-fft+xy", fft_axis=0, impl_stage=0,
+                              comm_axis="y", split_axis=0, concat_axis=1,
+                              chunk_axis=2)
+
+
+def _logged_stage(monkeypatch, impl, k, mode="pipelined"):
+    """Run XY_STAGE on the loopback mesh with K = ``k``; returns (output,
+    log of compute legs, posts and waits, growth of the overlap
+    counter)."""
+    log = []
+    stage_pre = schedule_lib.stage_pre
+
+    def pre(*a, **kw):
+        log.append("pre")
+        return stage_pre(*a, **kw)
+    monkeypatch.setattr(schedule_lib, "stage_pre", pre)
+    counter = metrics_lib.get_registry().counter(
+        schedule_lib.CHUNKS_OVERLAPPED)
+    before = counter.value
+    opts = FFTOptions(overlap_k=k, transpose_impl=impl, overlap_mode=mode,
+                      local_impl="pallas")
+    g = torch.Generator().manual_seed(3)
+    blk = torch.complex(torch.randn(8, 4, 8, generator=g),
+                        torch.randn(8, 4, 8, generator=g))
+    out = schedule_lib.run_stage(blk, XY_STAGE, -1, opts,
+                                 _LoopbackMesh(log))
+    return out, log, counter.value - before
+
+
+@pytest.mark.parametrize("mode", ["pipelined", "unrolled"])
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("impl", ["alltoall", "ring"])
+def test_chunk_collective_posted_before_next_fft(monkeypatch, impl, k, mode):
+    """Chunk i's pack and collective are queued before chunk i+1's compute
+    leg, so chunk i's transfer runs under chunk i+1's FFT on the card; the
+    waits follow the last post.  The output is bitwise K = 1's."""
+    out, log, grown = _logged_stage(monkeypatch, impl, k, mode)
+    assert log == ["pre", "post"] * k + ["wait"] * k
+    assert grown == k - 1
+    one, log1, grown1 = _logged_stage(monkeypatch, impl, 1, mode)
+    assert log1 == ["pre", "post", "wait"] and grown1 == 0
+    assert torch.equal(out, one)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_pairwise_stage_stays_serial(monkeypatch, k):
+    """The pairwise baseline waits on each round inside its collective
+    leg: nothing is in flight under the next chunk's FFT, and the counter
+    stays where it was."""
+    out, log, grown = _logged_stage(monkeypatch, "pairwise", k)
+    assert log == ["pre", "post", "wait"] * k
+    assert grown == 0
+    assert torch.equal(out, _logged_stage(monkeypatch, "ring", 1)[0])
