@@ -27,7 +27,10 @@ import torch
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.device import full_fp32_matmul
+from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs.tracer import span
+
+DFT_PRODUCTS = "matmul_dft_products"
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -38,9 +41,14 @@ def fft_xla(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     return torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * x.shape[-1]
 
 
-def _apply_dft_matrix(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    # x (..., n), w (n, k): contraction over the last axis
-    return torch.einsum("...n,nk->...k", x, w)
+def _dft_product(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One DFT product of :func:`fft_matmul` (a ``matmul:dft`` span, the
+    copies ``einsum`` makes around its GEMM included); each adds one to
+    the ``matmul_dft_products`` counter."""
+    metrics_lib.get_registry().counter(
+        DFT_PRODUCTS, "DFT products issued by the matmul local FFT").inc()
+    with span("matmul:dft", "fft", x.device):
+        return torch.einsum(eq, x, w)
 
 
 def fft_matmul(x: torch.Tensor, sign: int = -1, *, plan_cache: bool = True,
@@ -52,25 +60,30 @@ def fft_matmul(x: torch.Tensor, sign: int = -1, *, plan_cache: bool = True,
                                DFT(n2); transpose  (the kernel computes
                                exactly this path)
     larger                   : six-step recursion on the n2 axis
+
+    Spans: ``matmul:dft`` a product, ``matmul:twiddle`` the twiddle
+    multiply, ``matmul:relayout`` the output's transposed copy.
     """
     full_fp32_matmul(x.device)
     n = x.shape[-1]
     plan = plan_lib.make_plan(n, sign, _dtype_name(x.dtype), max_radix)
     w1, w2, tw = plan.constants_torch(x.device, rematerialize=not plan_cache)
     if plan.n2 == 1:
-        return _apply_dft_matrix(x, w1)
+        # x (..., n), w (n, k): contraction over the last axis
+        return _dft_product("...n,nk->...k", x, w1)
 
     batch = tuple(x.shape[:-1])
     n1, n2 = plan.n1, plan.n2
     # n = n2*j1 + j2  (row-major reshape)
     xr = x.reshape(batch + (n1, n2))
     # stage 1: DFT over j1 -> (..., n2, k1)
-    y = torch.einsum("...jt,jk->...tk", xr, w1)
+    y = _dft_product("...jt,jk->...tk", xr, w1)
     # stage 2: twiddles T[j2, k1]
-    y = y * tw
+    with span("matmul:twiddle", "epilogue", x.device):
+        y = y * tw
     if n2 <= max_radix:
         # stage 3: DFT over j2 -> (..., k1, k2): contract the t axis
-        z = torch.einsum("...tk,ts->...ks", y, w2)
+        z = _dft_product("...tk,ts->...ks", y, w2)
     else:
         # six-step: recurse along the n2 axis (currently axis -2); move it
         # last, recurse, move back
@@ -78,8 +91,8 @@ def fft_matmul(x: torch.Tensor, sign: int = -1, *, plan_cache: bool = True,
         z = fft_matmul(y, sign, plan_cache=plan_cache, max_radix=max_radix)
         # z[..., k1, k2] already
     # output index k = k1 + n1*k2  -> lay out (..., k2, k1) then ravel
-    z = z.transpose(-1, -2)
-    return z.reshape(batch + (n,))
+    with span("matmul:relayout", "unpack", x.device):
+        return z.transpose(-1, -2).reshape(batch + (n,))
 
 
 def fft_stockham(x: torch.Tensor, sign: int = -1, *,

@@ -45,6 +45,8 @@ PENCIL_NESTING = {
     **{name: {"croft3d:forward", "croft3d:inverse"}
        for name in ("stage:fft", "transpose:pack", "transpose:collective",
                     "transpose:unpack", "stage:cat")},
+    # the default local FFT: 16-point axes take one DFT product
+    "matmul:dft": {"stage:fft"},
     "inverse:normalize": {"croft3d:inverse"},
 }
 
