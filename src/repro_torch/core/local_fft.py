@@ -11,10 +11,10 @@ each axis; here four interchangeable implementations:
 - ``"pallas"``     the hand-written Hopper kernel (``kernels/fft_matmul``);
                    the name is the reference's, kept so tokens match
 
-All but ``"pallas"`` operate along the *last* axis and ``fft_1d`` moves
-the axis for them; the kernel transforms any axis in place.  Forward
-sign=-1, inverse sign=+1 unnormalized (normalization applied at the 3-D
-level, eq. (2) of the paper).
+``stockham`` and ``xla`` operate along the *last* axis and ``fft_1d``
+moves the axis for them; ``matmul`` and the kernel read the transform
+axis where it lies.  Forward sign=-1, inverse sign=+1 unnormalized
+(normalization applied at the 3-D level, eq. (2) of the paper).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs.tracer import span
 
 DFT_PRODUCTS = "matmul_dft_products"
+LAYOUT_COPIES = "matmul_layout_copies"
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -41,58 +42,169 @@ def fft_xla(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     return torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * x.shape[-1]
 
 
-def _dft_product(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One DFT product of :func:`fft_matmul` (a ``matmul:dft`` span, the
-    copies ``einsum`` makes around its GEMM included); each adds one to
-    the ``matmul_dft_products`` counter."""
+def _product(device):
+    """Open one DFT product of :func:`fft_matmul`: a ``matmul:dft`` span
+    around all of its GEMM calls, and one more on the
+    ``matmul_dft_products`` counter."""
     metrics_lib.get_registry().counter(
         DFT_PRODUCTS, "DFT products issued by the matmul local FFT").inc()
-    with span("matmul:dft", "fft", x.device):
-        return torch.einsum(eq, x, w)
+    return span("matmul:dft", "fft", device)
 
 
-def fft_matmul(x: torch.Tensor, sign: int = -1, *, plan_cache: bool = True,
+def _left(w: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
+    """``out[i] = w @ b[i]`` over the batch dim, one cuBLAS call: a GEMM
+    reads ``b`` and writes ``out`` where they lie (each matrix needs one
+    unit stride), ``w`` broadcast with batch stride 0."""
+    if b.shape[0] == 1:
+        torch.mm(w, b[0], out=out[0])
+    else:
+        torch.bmm(w.expand(b.shape[0], -1, -1), b, out=out)
+
+
+def _merged_stride(shape, strides) -> Optional[int]:
+    """The stride of ``shape``'s dims merged into one (1 for none), or
+    None where they do not merge; a dim of size 1 takes any stride."""
+    dims = [(n, s) for n, s in zip(shape, strides) if n != 1]
+    if any(s0 != n1 * s1 for (_, s0), (n1, s1) in zip(dims, dims[1:])):
+        return None
+    return dims[-1][1] if dims else 1
+
+
+def _axis_view(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``x`` as ``(A, N, C)`` around ``axis``, a view the products read
+    where it lies: the dims after the axis (or the axis itself when
+    ``C == 1``) of unit stride.  Where no such view exists (a K-chunk
+    slice across the merged dims, a ``movedim``) one ``contiguous()``,
+    counted by ``matmul_layout_copies`` under ``matmul:relayout``."""
+    a, n = math.prod(x.shape[:axis]), x.shape[axis]
+    c = math.prod(x.shape[axis + 1:])
+    sa = _merged_stride(x.shape[:axis], x.stride()[:axis])
+    sc = _merged_stride(x.shape[axis + 1:], x.stride()[axis + 1:])
+    sn = x.stride(axis)
+    if sa is not None and sc is not None and (
+            (c > 1 and sc == 1 and (n == 1 or sn >= c))
+            or (c == 1 and (n == 1 or sn == 1) and (a == 1 or sa >= n))):
+        return x.view(a, n, c)
+    metrics_lib.get_registry().counter(
+        LAYOUT_COPIES, "inputs of the matmul local FFT copied to a "
+        "contiguous layout first").inc()
+    with span("matmul:relayout", "unpack", x.device):
+        return x.contiguous().view(a, n, c)
+
+
+def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
+              max_radix: int) -> torch.Tensor:
+    """The DFT along the middle dim of an ``(A, N, C)`` view, into a new
+    contiguous ``(A, N, C)`` tensor.  ``n = n2*j1 + j2`` in, ``k = k1 +
+    n1*k2`` out, so the input reads as ``(A, j1, j2, C)`` and the output
+    is written as ``(A, k2, k1, C)``: every product a GEMM on the
+    operands where they lie, no copy between them.
+
+    C > 1 (a strided axis): ``Y[:, j2] = H[j2] @ X[:, :, j2, :]`` with
+    the twiddles folded into ``H`` (``FFTPlan.folded_torch``), then
+    ``Z[a] = F2 @ Y[a]`` as ``(n2, n1*C)``: two passes.
+    C = 1 (the contiguous axis): ``Y[a] = F1 @ X[a]``, the twiddle in
+    place, ``Z[a] = F2 @ Y[a]^T`` (the transpose an operand flag): three.
+    Above ``max_radix**2`` the second stage is this function again on
+    ``Y`` as ``(A, n2, n1*C)`` (six-step); on the contiguous axis the
+    twiddle pass then writes ``Y`` transposed, ``(A, j2, k1)``, for it.
+    """
+    a, n, c = v.shape
+    dev = v.device
+    plan = plan_lib.make_plan(n, sign, _dtype_name(v.dtype), max_radix)
+    w1, w2, tw = plan.constants_torch(dev, rematerialize=not plan_cache)
+    if plan.n2 == 1:
+        out = v.new_empty((a, n, c))
+        with _product(dev):
+            if c == 1:
+                # w1 is symmetric: rows of X times w1, one GEMM
+                torch.mm(v[:, :, 0], w1, out=out[:, :, 0])
+            else:
+                _left(w1, v, out)
+        return out
+    n1, n2 = plan.n1, plan.n2
+    x4 = v.unflatten(1, (n1, n2))                   # (a, j1, j2, c)
+    if c == 1:
+        y = v.new_empty((a, n1, n2))                # (a, k1, j2)
+        with _product(dev):
+            _left(w1, x4[..., 0], y)
+        if plan.two_level:
+            with span("matmul:twiddle", "epilogue", dev):
+                y.mul_(tw.t())
+            out = v.new_empty((a, n2, n1))          # (a, k2, k1)
+            with _product(dev):
+                _left(w2, y.transpose(1, 2), out)
+            return out.view(a, n, 1)
+        yt = v.new_empty((a, n2, n1))               # (a, j2, k1)
+        with span("matmul:twiddle", "epilogue", dev):
+            torch.mul(y.transpose(1, 2), tw, out=yt)
+        return _dft_axis(yt, sign, plan_cache, max_radix).view(a, n, 1)
+    h = plan.folded_torch(dev, rematerialize=not plan_cache)
+    y = v.new_empty((a, n2, n1, c))                 # (a, j2, k1, c)
+    with _product(dev):
+        if a <= n2:     # a call per a, batched over j2
+            for i in range(a):
+                torch.bmm(h, x4[i].transpose(0, 1), out=y[i])
+        else:           # a call per j2, batched over a
+            for j in range(n2):
+                torch.bmm(h[j].expand(a, -1, -1), x4[:, :, j], out=y[:, j])
+    y = y.view(a, n2, n1 * c)
+    if not plan.two_level:
+        return _dft_axis(y, sign, plan_cache, max_radix).view(a, n, c)
+    out = v.new_empty((a, n, c))                    # (a, k2, k1, c)
+    with _product(dev):
+        _left(w2, y, out.view(a, n2, n1 * c))
+    return out
+
+
+class _AxisDFT:
+    """:func:`fft_matmul` as a linear plan (``grad.vjp.Linear``): the
+    products write into ``out=`` tensors, which autograd cannot follow.
+    The DFT matrix is symmetric, so ``F_s^H = F_{-s}``: the adjoint is
+    the same transform with the sign flipped."""
+
+    def __init__(self, sign, axis, plan_cache, max_radix):
+        self.sign, self.axis = sign, axis
+        self.plan_cache, self.max_radix = plan_cache, max_radix
+
+    def run(self, x):
+        return _fft_matmul(x, self.sign, self.axis, self.plan_cache,
+                           self.max_radix)
+
+    def adjoint(self, g):
+        return fft_matmul(g, -self.sign, axis=self.axis,
+                          plan_cache=self.plan_cache,
+                          max_radix=self.max_radix)
+
+
+def fft_matmul(x: torch.Tensor, sign: int = -1, *, axis: int = -1,
+               plan_cache: bool = True,
                max_radix: int = plan_lib.MAX_RADIX) -> torch.Tensor:
-    """Four-step FFT along the last axis.  Supports any power-of-two size.
+    """Four-step FFT along ``axis``, read where it lies (any power-of-two
+    size; :func:`_dft_axis` says how).
 
     n <= max_radix           : single DFT product
-    n <= max_radix**2        : reshape (n1, n2); DFT(n1); twiddle;
-                               DFT(n2); transpose  (the kernel computes
-                               exactly this path)
+    n <= max_radix**2        : (n1, n2) split: two products, the
+                               contiguous axis a twiddle pass between
     larger                   : six-step recursion on the n2 axis
 
     Spans: ``matmul:dft`` a product, ``matmul:twiddle`` the twiddle
-    multiply, ``matmul:relayout`` the output's transposed copy.
+    pass, ``matmul:relayout`` the input's copy where it has no
+    ``(A, N, C)`` view (``matmul_layout_copies``).  Differentiable
+    through ``grad.vjp.Linear``.
     """
-    full_fp32_matmul(x.device)
-    n = x.shape[-1]
-    plan = plan_lib.make_plan(n, sign, _dtype_name(x.dtype), max_radix)
-    w1, w2, tw = plan.constants_torch(x.device, rematerialize=not plan_cache)
-    if plan.n2 == 1:
-        # x (..., n), w (n, k): contraction over the last axis
-        return _dft_product("...n,nk->...k", x, w1)
+    if torch.is_grad_enabled() and x.requires_grad:
+        from repro_torch.grad import vjp
+        return vjp.Linear.apply(x, _AxisDFT(sign, axis, plan_cache,
+                                            max_radix))
+    return _fft_matmul(x, sign, axis, plan_cache, max_radix)
 
-    batch = tuple(x.shape[:-1])
-    n1, n2 = plan.n1, plan.n2
-    # n = n2*j1 + j2  (row-major reshape)
-    xr = x.reshape(batch + (n1, n2))
-    # stage 1: DFT over j1 -> (..., n2, k1)
-    y = _dft_product("...jt,jk->...tk", xr, w1)
-    # stage 2: twiddles T[j2, k1]
-    with span("matmul:twiddle", "epilogue", x.device):
-        y = y * tw
-    if n2 <= max_radix:
-        # stage 3: DFT over j2 -> (..., k1, k2): contract the t axis
-        z = _dft_product("...tk,ts->...ks", y, w2)
-    else:
-        # six-step: recurse along the n2 axis (currently axis -2); move it
-        # last, recurse, move back
-        y = y.transpose(-1, -2)  # (..., k1, n2)
-        z = fft_matmul(y, sign, plan_cache=plan_cache, max_radix=max_radix)
-        # z[..., k1, k2] already
-    # output index k = k1 + n1*k2  -> lay out (..., k2, k1) then ravel
-    with span("matmul:relayout", "unpack", x.device):
-        return z.transpose(-1, -2).reshape(batch + (n,))
+
+def _fft_matmul(x, sign, axis, plan_cache, max_radix):
+    full_fp32_matmul(x.device)
+    axis = axis % x.ndim
+    v = _axis_view(x, axis)
+    return _dft_axis(v, sign, plan_cache, max_radix).view(x.shape)
 
 
 def fft_stockham(x: torch.Tensor, sign: int = -1, *,
@@ -131,21 +243,21 @@ def fft_stockham(x: torch.Tensor, sign: int = -1, *,
     return y
 
 
-_IMPLS = {"matmul": fft_matmul, "stockham": fft_stockham, "xla": fft_xla}
-
-
 def fft_1d(x: torch.Tensor, axis: int, sign: int = -1, *,
            impl: str = "matmul", plan_cache: bool = True) -> torch.Tensor:
     """1-D FFT along ``axis`` with the chosen implementation."""
     if impl == "pallas":
         # the Hopper kernel reads the transform axis where it lies
-        from repro_torch.kernels import fft_matmul
-        return fft_matmul.fft4step_axis(x, axis, sign)
+        from repro_torch.kernels import fft_matmul as kernel
+        return kernel.fft4step_axis(x, axis, sign)
+    if impl == "matmul":
+        return fft_matmul(x, sign, axis=axis, plan_cache=plan_cache)
     if impl == "xla":
         fn = lambda v: fft_xla(v, sign)
+    elif impl == "stockham":
+        fn = lambda v: fft_stockham(v, sign, plan_cache=plan_cache)
     else:
-        base = _IMPLS[impl]
-        fn = lambda v: base(v, sign, plan_cache=plan_cache)
+        raise KeyError(impl)
     return fn(x.movedim(axis, -1)).movedim(-1, axis)
 
 

@@ -141,6 +141,33 @@ class FFTPlan:
             tw = None
         return w1, w2, tw
 
+    def folded_torch(self, device, rematerialize: bool = False):
+        """The first stage's DFT with the twiddles folded in, as
+        ``(n2, n1, n1)`` complex: ``H[j2] = diag(T[j2, :]) @ w1``, i.e.
+        ``H[j2, k1, j1] = exp(sign*2πi*k1*(n2*j1 + j2)/n)``, for an axis
+        whose first stage can batch over ``j2``.  Cached per device like
+        :meth:`constants_torch`; rebuilt with tensor ops on every call
+        with ``rematerialize=True``."""
+        device = torch.device(device)
+        n, n1, n2 = self.n, self.n1, self.n2
+        if not rematerialize:
+            key = ("fold", device)
+            h = self._on_device.get(key)
+            if h is None:
+                j2, k1, j1 = np.ogrid[:n2, :n1, :n1]
+                e = (k1 * (n2 * j1 + j2)) % n
+                h = torch.from_numpy(np.exp(self.sign * 2j * np.pi * e / n)
+                                     .astype(self.dtype)).to(device)
+                if has_values(h):
+                    self._on_device[key] = h
+            return h
+        j2, k1, j1 = (torch.arange(m, device=device) for m in (n2, n1, n1))
+        e = (k1[None, :, None] * (n2 * j1[None, None, :] + j2[:, None, None])
+             ) % n
+        ang = (self.sign * 2.0 * math.pi / n) * e.to(torch.float32)
+        return torch.complex(torch.cos(ang), torch.sin(ang)).to(
+            _torch_dtype(self.dtype))
+
     def twiddles_t_torch(self, device) -> torch.Tensor:
         """The (n2, n1) twiddle table transposed to (n1, n2) on the host,
         as the Hopper kernel reads it, on ``device`` (cached)."""

@@ -23,8 +23,8 @@ from repro_torch.core import local_fft
 from repro_torch.core.distributed import FFTOptions, transpose_stage
 
 
-def _fft_last(x: torch.Tensor) -> torch.Tensor:
-    return local_fft.fft_matmul(x, sign=-1)
+def _fft(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return local_fft.fft_matmul(x, sign=-1, axis=axis)
 
 
 def spectral_mixer(x: torch.Tensor, *, seq_axis_name: Optional[str] = None,
@@ -36,9 +36,9 @@ def spectral_mixer(x: torch.Tensor, *, seq_axis_name: Optional[str] = None,
     local); ``x`` is then this rank's (B_local, S/P, D) block.
     """
     xc = x.to(torch.complex64)
-    xc = _fft_last(xc)                      # hidden-dim FFT, always local
+    xc = _fft(xc, -1)                       # hidden-dim FFT, always local
     if seq_axis_name is None:
-        y = _fft_last(xc.transpose(1, 2)).transpose(1, 2)
+        y = _fft(xc, 1)
     else:
         y = distributed_seq_fft(xc, seq_axis_name, mesh, batch_spec,
                                 overlap_k)
@@ -60,7 +60,7 @@ def distributed_seq_fft(xc: torch.Tensor, axis_name: str, mesh, batch_spec,
     opts = FFTOptions(overlap_k=overlap_k)
     blk = transpose_stage(xc, comm_axis=axis_name, split_axis=2,
                           concat_axis=1, chunk_axis=0, opts=opts, mesh=mesh)
-    blk = _fft_last(blk.movedim(1, -1)).movedim(-1, 1)
+    blk = _fft(blk, 1)
     return transpose_stage(blk, comm_axis=axis_name, split_axis=1,
                            concat_axis=2, chunk_axis=0, opts=opts, mesh=mesh)
 

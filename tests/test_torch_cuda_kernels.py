@@ -140,6 +140,29 @@ def test_croft3d_meshless_runs_the_kernel(cuda_device):
     assert (plan.inverse(y) - x).abs().max().item() < 1e-4
 
 
+@pytest.mark.cuda
+def test_croft3d_default_plan_round_trip_in_full_fp32(cuda_device):
+    """``Croft3D(shape)`` with ``FFTOptions()``: the matmul local FFT's
+    cuBLAS products on the field's own layout, TF32 off, at 256^3
+    against ``torch.fft.fftn``, and back."""
+    from repro_torch.core import Croft3D, FFTOptions
+    from repro_torch.core import local_fft
+    from repro_torch.obs import metrics
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((256,) * 3, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    plan = Croft3D(x.shape, opts=FFTOptions())
+    copies = metrics.get_registry().counter(local_fft.LAYOUT_COPIES)
+    before = copies.value
+    y = plan.forward(x)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = torch.fft.fftn(x)
+    assert (y - want).abs().max().item() <= 3e-5 * want.abs().max().item()
+    back = plan.inverse(y)
+    assert (back - x).abs().max().item() <= 3e-5 * x.abs().max().item()
+    assert copies.value == before
+
+
 def _launched(name, fn):
     before = launch_counts().get(name, 0)
     out = fn()

@@ -15,7 +15,8 @@
   on the CPU a seeded draw is bit-equal to ``nn.init.trunc_normal_``'s,
   model by model.
 * The FFT plan's constants are cached only when they hold values: a
-  forward under ``FakeTensorMode`` leaves the cache as it was.
+  forward under ``FakeTensorMode`` leaves the cache as it was.  A fake
+  round trip of the default plan counts what a real one does.
 """
 
 import json
@@ -191,3 +192,35 @@ def test_fft_constants_are_not_cached_from_fake_tensors():
     assert torch.allclose(y, torch.fft.fft(x), atol=1e-3)
     assert all(has_values(t) for t in plan._on_device[torch.device("cpu")]
                if t is not None)
+
+
+@pytest.mark.parametrize("shape", [(128, 8, 128), (16, 256, 32)])
+def test_default_plan_dry_run_counts_what_a_real_run_does(shape):
+    """``Croft3D(shape)`` with ``FFTOptions()`` (the matmul local FFT) on
+    fake tensors: the same DFT products, layout copies and matmul FLOPs
+    (the dry run's own count, ``launch.dryrun._FlopCount``) as a round
+    trip on real ones, and the same output, less its values."""
+    from repro_torch.core import Croft3D, FFTOptions
+    from repro_torch.launch.dryrun import _FlopCount
+    from repro_torch.obs import metrics
+
+    def counts(x):
+        reg = metrics.get_registry()
+        names = (local_fft.DFT_PRODUCTS, local_fft.LAYOUT_COPIES)
+        before = [getattr(reg.get(k), "value", 0.0) for k in names]
+        plan = Croft3D(shape, opts=FFTOptions(), device="cpu")
+        with torch.no_grad(), _FlopCount() as flops:
+            y = plan.inverse(plan.forward(x))
+        after = [getattr(reg.get(k), "value", 0.0) for k in names]
+        got = [a - b for a, b in zip(after, before)]
+        return (y.shape, y.dtype, *got, flops.total)
+
+    # fake first, as in the dry run's own process: the plans' cached
+    # constants are real tensors, which a fake mode refuses
+    plan_lib.clear_plan_cache()
+    with FakeTensorMode():
+        fake = counts(torch.empty(shape, dtype=torch.complex64))
+    real = counts(torch.randn(shape, dtype=torch.complex64))
+    assert fake == real
+    assert real[2] == 2 * sum(1 if n <= 64 else 2 for n in shape)
+    assert real[3] == 0 and real[4] > 0

@@ -78,6 +78,79 @@ def test_fft_matmul_matches_reference(n, plan_cache):
     np.testing.assert_allclose(ours, ref, atol=KERNEL_TOL * np.abs(ref).max())
 
 
+def _axis_layouts(x: np.ndarray, axis: int) -> dict:
+    """The values of ``x`` in three layouts: contiguous, a K-chunk slice
+    (the block of a larger field, cut along the first other dim) and a
+    ``movedim`` view (the axis stored first)."""
+    cut = next(d for d in range(x.ndim) if d != axis % x.ndim)
+    big = np.concatenate([_field(x.shape, seed=7), x, _field(x.shape, 8)],
+                         axis=cut)
+    lo = x.shape[cut]
+    stored_first = np.ascontiguousarray(np.moveaxis(x, axis, 0))
+    return {
+        "contiguous": torch.from_numpy(x.copy()),
+        "k_chunk": torch.from_numpy(big).narrow(cut, lo, lo),
+        "movedim": torch.from_numpy(stored_first).movedim(0, axis),
+    }
+
+
+@pytest.mark.parametrize("n", [2, 8, 64, 128, 1024, 8192])
+@pytest.mark.parametrize("ndim", [3, 4])
+@pytest.mark.parametrize("axis", [-3, -2, -1])
+@pytest.mark.parametrize("sign", [-1, +1])
+@pytest.mark.parametrize("plan_cache", [True, False])
+def test_matmul_along_an_axis_matches_reference(n, ndim, axis, sign,
+                                                plan_cache):
+    """``fft_1d(impl="matmul")`` and ``fft_matmul(axis=)``, which read the
+    axis where it lies, against the reference's ``fft_matmul`` on the
+    axis moved last and against numpy, on every layout of the input."""
+    shape = [3, 2] if ndim == 3 else [2, 3, 2]
+    shape.insert(ndim + axis, n)
+    x = _field(tuple(shape), seed=n + ndim)
+    ref = np.moveaxis(np.asarray(ref_local.fft_matmul(
+        jnp.asarray(np.moveaxis(x, axis, -1)), sign,
+        plan_cache=plan_cache)), -1, axis)
+    exact = np.fft.fft(x.astype(np.complex128), axis=axis)
+    if sign == +1:
+        exact = np.fft.ifft(x.astype(np.complex128), axis=axis) * n
+    atol = KERNEL_TOL * np.abs(ref).max()
+    np.testing.assert_allclose(ref, exact, atol=atol)
+    for name, t in _axis_layouts(x, axis).items():
+        for got in (local_fft.fft_1d(t, axis, sign, impl="matmul",
+                                     plan_cache=plan_cache),
+                    local_fft.fft_matmul(t, sign, axis=axis,
+                                         plan_cache=plan_cache)):
+            assert got.shape == x.shape and got.is_contiguous(), name
+            np.testing.assert_allclose(got.numpy(), ref, atol=atol,
+                                       err_msg=name)
+            np.testing.assert_allclose(got.numpy(), exact, atol=atol,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_fft_matmul_gradient_is_the_flipped_transform(axis, sign):
+    """Under grad the products run inside ``grad.vjp.Linear``: the
+    gradient equals ``torch.fft``'s autograd (``F_s^H = F_{-s}``)."""
+    g = torch.Generator().manual_seed(axis)
+    shape = [4, 8, 6]
+    shape[axis] = 128
+    x = torch.randn(shape, dtype=torch.complex64, generator=g,
+                    requires_grad=True)
+    r = torch.randn(shape, dtype=torch.complex64, generator=g)
+    y = local_fft.fft_matmul(x, sign, axis=axis)
+    assert y.grad_fn is not None
+    (y * r).real.sum().backward()
+    x2 = x.detach().clone().requires_grad_()
+    f = torch.fft.fft if sign == -1 else torch.fft.ifft
+    y2 = f(x2, dim=axis) * (1 if sign == -1 else shape[axis])
+    (y2 * r).real.sum().backward()
+    torch.testing.assert_close(y.detach(), y2.detach(), rtol=0,
+                               atol=KERNEL_TOL * y2.abs().max().item())
+    torch.testing.assert_close(x.grad, x2.grad, rtol=0,
+                               atol=KERNEL_TOL * x2.grad.abs().max().item())
+
+
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("sign", [-1, +1])
 @pytest.mark.parametrize("plan_cache", [True, False])

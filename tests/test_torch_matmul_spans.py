@@ -1,12 +1,15 @@
-"""The matmul local FFT's spans and counter (``core/local_fft.py:
-fft_matmul``): ``matmul:dft`` a DFT product, ``matmul:twiddle``,
-``matmul:relayout``, and ``matmul_dft_products`` one a product issued;
-free when nothing records, ``repro_torch.*`` ranges under
-``torch.profiler``, and no change to the answers when they record."""
+"""The matmul local FFT's spans and counters (``core/local_fft.py:
+fft_matmul``): ``matmul:dft`` a DFT product, ``matmul:twiddle`` (the
+contiguous axis's twiddle pass), ``matmul:relayout`` (an input's copy
+where it has no ``(A, N, C)`` view), ``matmul_dft_products`` one a
+product issued and ``matmul_layout_copies`` one such copy; free when
+nothing records, ``repro_torch.*`` ranges under ``torch.profiler``, and
+no change to the answers when they record."""
 
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import obs
 from repro_torch.core import Croft3D, local_fft
@@ -14,7 +17,9 @@ from repro_torch.obs import metrics
 from repro_torch.obs import tracer as tracer_lib
 from test_torch_obs_spans import nesting, profiled_trace
 
-SHAPE = (1024, 8, 16)       # a two-product axis and two one-product axes
+# a strided two-product axis, a one-product axis and a contiguous
+# two-product axis (64 x 2), the one with a twiddle pass
+SHAPE = (1024, 8, 128)
 SPANS = ("matmul:dft", "matmul:twiddle", "matmul:relayout")
 
 
@@ -25,6 +30,11 @@ def field(shape, seed=5):
 
 def products() -> float:
     found = metrics.get_registry().get(local_fft.DFT_PRODUCTS)
+    return 0.0 if found is None else found.value
+
+
+def layout_copies() -> float:
+    found = metrics.get_registry().get(local_fft.LAYOUT_COPIES)
     return 0.0 if found is None else found.value
 
 
@@ -49,8 +59,22 @@ def test_counter_counts_a_3d_roundtrip():
     run = roundtrip()
     before = products()
     run()
-    # forward and inverse: 2 for the 1024-point axis, 1 each for 8 and 16
-    assert products() - before == 2 * (2 + 1 + 1)
+    # forward and inverse: 2 for the 1024-point axis, 1 for 8, 2 for 128
+    assert products() - before == 2 * (2 + 1 + 2)
+
+
+
+def test_a_view_the_products_cannot_read_is_copied_once(tmp_path):
+    x = field((8, 16, 32))
+    # along the last axis (A, N, C) = (8*8, 32, 1), but the slice's 8 and
+    # 8 do not merge into one dim: no such view
+    block = x[:, 4:12, :]
+    before = layout_copies()
+    events, record = profiled_trace(
+        lambda: local_fft.fft_1d(block, 2, -1), tmp_path)
+    assert layout_copies() - before == 1
+    assert record["matmul:relayout"]["count"] == 1
+    assert nesting(events)["matmul:relayout"] == {None}
 
 
 def test_off_spans_are_null_and_record_nothing(monkeypatch):
@@ -70,27 +94,29 @@ def test_off_spans_are_null_and_record_nothing(monkeypatch):
 def test_profiled_spans_nest_and_count(tmp_path):
     events, record = profiled_trace(roundtrip(), tmp_path)
     got = nesting(events)
-    for name in SPANS:
+    ran = SPANS[:2]         # a contiguous field takes no layout copy
+    assert "matmul:relayout" not in record
+    for name in ran:
         assert got[name] == {"stage:fft"}, name
     assert got["stage:fft"] == {"croft3d:forward", "croft3d:inverse"}
-    assert record["matmul:dft"]["count"] == 2 * (2 + 1 + 1)
+    assert record["matmul:dft"]["count"] == 2 * (2 + 1 + 2)
     assert record["matmul:twiddle"]["count"] == 2
-    assert record["matmul:relayout"]["count"] == 2
     # timed on no card: host time only
     assert all(record[n]["host_s"] > 0 and record[n]["device_s"] is None
-               for n in SPANS)
+               for n in ran)
 
 
 def test_six_step_spans_nest_inside_the_axis(tmp_path):
     x = field((2, 8192))
     events, record = profiled_trace(lambda: local_fft.fft_matmul(x),
                                     tmp_path)
-    # 64 x 128, then 64 x 2: the inner call's spans are the outer's
-    # siblings, outside every span of the outer call
+    # 64 x 128, then 64 x 2: the outer twiddle pass writes the 128-point
+    # axis strided, whose level folds its twiddles; the inner level's
+    # spans are the outer's siblings, outside every span of the outer
     assert record["matmul:dft"]["count"] == 3
-    assert record["matmul:twiddle"]["count"] == 2
-    assert record["matmul:relayout"]["count"] == 2
-    assert nesting(events) == {name: {None} for name in SPANS}
+    assert record["matmul:twiddle"]["count"] == 1
+    assert "matmul:relayout" not in record
+    assert nesting(events) == {name: {None} for name in SPANS[:2]}
 
 
 def test_a_tracer_takes_the_spans():
@@ -98,9 +124,9 @@ def test_a_tracer_takes_the_spans():
     with obs.tracing() as tr:
         run()
     names = [e["name"] for e in tr.events()]
-    assert names.count("matmul:dft") == 8
-    assert names.count("matmul:twiddle") == names.count(
-        "matmul:relayout") == 2
+    assert names.count("matmul:dft") == 10
+    assert names.count("matmul:twiddle") == 2
+    assert names.count("matmul:relayout") == 0
     assert tr.device_ms() == {}           # nothing ran on a card
 
 
@@ -113,3 +139,55 @@ def test_answers_bitwise_equal_with_tracing_on_and_off():
     with obs.tracing():
         traced = run()
     assert torch.equal(off, profiled) and torch.equal(off, traced)
+
+
+class _Writes(TorchDispatchMode):
+    """The aten ops a scope dispatches, by name, and the elements they
+    write: an ``out=`` or in-place op its target, any other op that is
+    no view and no allocation its new result."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.written = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func._overloadpacket.__name__
+        self.ops.append(name)
+        info = func._schema.returns[0].alias_info if \
+            func._schema.returns else None
+        if isinstance(out, torch.Tensor) and "empty" not in name and (
+                info is None or info.is_write):
+            self.written += out.numel()
+        return out
+
+
+CELL = (1024, 1024, 1024)   # the default-plan cell's field, on meta
+
+
+@pytest.mark.parametrize("axis,passes", [(-3, 2), (-2, 2), (-1, 3)])
+def test_an_axis_is_read_where_it_lies(axis, passes):
+    """Along each axis of a contiguous field: no copy, the products'
+    outputs and the contiguous axis's in-place twiddle the only full
+    passes (2 a strided axis, 3 the contiguous one), 2 products, no
+    layout copy.  On ``meta``: the cell's own shape, no values."""
+    x = torch.empty(CELL, dtype=torch.complex64, device="meta")
+    before = products(), layout_copies()
+    with _Writes() as log:
+        y = local_fft.fft_1d(x, axis, -1)
+    assert y.shape == x.shape and y.is_contiguous()
+    assert not {"clone", "copy_", "contiguous"} & set(log.ops), log.ops
+    # the plan's tables (32 x 32 x 32 at most) round away
+    assert round(log.written / x.numel(), 3) == passes
+    assert (products() - before[0], layout_copies() - before[1]) == (2, 0)
+
+
+def test_an_input_with_no_view_takes_one_counted_copy():
+    x = torch.empty(CELL, dtype=torch.complex64, device="meta")
+    block = x[:, :512]          # a K-chunk: 1024 x 512 rows no longer merge
+    before = products(), layout_copies()
+    with _Writes() as log:
+        local_fft.fft_1d(block, -1, -1)
+    assert log.ops.count("clone") == 1
+    assert round(log.written / block.numel(), 3) == 1 + 3
+    assert (products() - before[0], layout_copies() - before[1]) == (2, 1)

@@ -45,8 +45,11 @@ PENCIL_NESTING = {
     **{name: {"croft3d:forward", "croft3d:inverse"}
        for name in ("stage:fft", "transpose:pack", "transpose:collective",
                     "transpose:unpack", "stage:cat")},
-    # the default local FFT: 16-point axes take one DFT product
+    # the default local FFT: 16-point axes take one DFT product; a
+    # K-chunk block with no (A, N, C) view around its axis takes one
+    # layout copy first
     "matmul:dft": {"stage:fft"},
+    "matmul:relayout": {"stage:fft"},
     "inverse:normalize": {"croft3d:inverse"},
 }
 

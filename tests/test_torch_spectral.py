@@ -76,6 +76,27 @@ def test_spectral_mixer_bf16_matches_reference():
     _close(got, np.asarray(want, np.float32), BF16_TOL)
 
 
+@pytest.mark.parametrize("shape", [(2, 16, 8), (2, 128, 64), (1, 8192, 4)])
+def test_spectral_mixer_gradient_matches_the_einsum_formula(shape):
+    """The mixer's gradient through the matmul local FFT (products into
+    ``out=`` tensors, under ``grad.vjp.Linear``) against autograd through
+    the same DFTs written as one ``einsum``, in float64."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, requires_grad=True)
+    r = torch.randn(shape, generator=g)
+    (spectral.spectral_mixer(x) * r).sum().backward()
+
+    def dft(n):
+        k = torch.arange(n, dtype=torch.float64)
+        return torch.exp(-2j * torch.pi * torch.outer(k, k) / n)
+
+    x64 = x.detach().double().requires_grad_()
+    y = torch.einsum("ts,bsd,de->bte", dft(shape[1]),
+                     x64.to(torch.complex128), dft(shape[2])).real
+    (y * r.double()).sum().backward()
+    _close(x.grad, x64.grad.numpy(), TOL)
+
+
 WORKER = r"""
 import json, os, sys
 import numpy as np, torch
