@@ -53,7 +53,9 @@ class Croft3D:
     (Nx, Ny, Nz//2 + 1) half spectrum; ``inverse`` returns the real field.
 
     Meshless plans run on ``device`` (the CUDA card unless the caller
-    passes ``device="cpu"``); with a mesh, on the mesh's device.
+    passes ``device="cpu"``); with a mesh, on the mesh's device.  A c2c
+    plan builds its two schedules once; every transform, meshless or
+    not, runs them through ``schedule.run_schedule``.
     """
 
     shape: tuple[int, int, int]
@@ -115,30 +117,29 @@ class Croft3D:
             if self.mesh is None:
                 raise ValueError("schedule= needs a mesh")
             self.decomp, self.opts = self.schedule.decomp, self.schedule.opts
-        if self.mesh is not None:
+            # basic mesh/axis checks at the weakest fixed-builder
+            # settings, then the searched pipeline's own shape checks
+            # (its transpose orders chunk along other axes than the
+            # fixed pipelines, so the fixed K rules don't apply)
+            self.decomp.validate(self.shape, self.mesh, 1, "alltoall")
+            self.schedule.validate(self.shape, self.mesh.shape)
+            self._sched_fwd = self.schedule.build_schedule()
+            self._sched_inv = distributed.inverse_schedule(self._sched_fwd)
+        elif self.mesh is not None:
             if self.decomp is None:
                 raise ValueError("a mesh requires a Decomposition")
-            if self.schedule is not None:
-                # basic mesh/axis checks at the weakest fixed-builder
-                # settings, then the searched pipeline's own shape checks
-                # (its transpose orders chunk along other axes than the
-                # fixed pipelines, so the fixed K rules don't apply)
-                self.decomp.validate(self.shape, self.mesh, 1, "alltoall")
-                self.schedule.validate(self.shape, self.mesh.shape)
-                self._sched_fwd = self.schedule.build_schedule()
-                self._sched_inv = distributed.inverse_schedule(
-                    self._sched_fwd)
-            else:
-                self.decomp.validate(self.shape, self.mesh,
-                                     self.opts.overlap_k,
-                                     self.opts.transpose_impl)
-            self.device = self.mesh.device
-        else:
-            self.device = resolve_device(self.device)
+            self.decomp.validate(self.shape, self.mesh, self.opts.overlap_k,
+                                 self.opts.transpose_impl)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(self.device))
         if self.problem == "r2c":
             from repro_torch import real as real_lib
             self.strategy = real_lib.resolve_strategy(
                 self.strategy, self.shape, self.mesh, self.decomp, self.opts)
+        elif self.schedule is None:
+            self._sched_fwd, self._sched_inv = (
+                distributed.c2c_schedule(self.mesh, self.decomp, self.opts,
+                                         sign) for sign in (-1, +1))
 
     @classmethod
     def from_tokens(cls, shape: Sequence[int], decomp_token: str,
@@ -166,45 +167,40 @@ class Croft3D:
         return self.shape
 
     # -- layouts -------------------------------------------------------------
-    def _slices(self, layout: str, shape=None) -> Optional[tuple]:
-        if self.mesh is None:
-            return None
-        return self.decomp.slices(shape or self.shape, self.mesh,
-                                  self.mesh.coords, layout)
-
-    def _layout_slices(self, layout) -> tuple:
-        """This rank's index ranges of a searched schedule's layout (it
-        can end on layouts no fixed spec names, e.g. x sharded by the z
-        communicator)."""
-        return spec_slices(layout.partition_spec(), self.shape,
-                           self.mesh.shape, self.mesh.coords)
+    def _slices(self, spec, shape=None) -> tuple:
+        """This rank's index ranges of ``shape`` (the grid) under a
+        partition spec."""
+        return spec_slices(spec, shape or self.shape, self.mesh.shape,
+                           self.mesh.coords)
 
     @property
     def input_sharding(self) -> Optional[tuple]:
         """The global index ranges of this rank's input block (None when
-        meshless).  Packed real input is z-pencils: the r2c stage runs
-        first, so the pipeline starts where the c2c pipeline ends."""
-        if self.problem == "r2c" and self.strategy == "packed":
-            return self._slices("spectral")
-        if self.schedule is not None:
-            return self._layout_slices(self._sched_fwd.layout_in)
-        return self._slices("natural")
+        meshless): a c2c plan's are its forward schedule's input layout.
+        Packed real input is z-pencils: the r2c stage runs first, so the
+        pipeline starts where the c2c pipeline ends."""
+        if self.mesh is None:
+            return None
+        if self.problem == "c2c":
+            return self._slices(self._sched_fwd.layout_in.partition_spec())
+        return self._slices(self.decomp.spec(
+            "spectral" if self.strategy == "packed" else "natural"))
 
     @property
     def output_sharding(self) -> Optional[tuple]:
-        """The global index ranges of this rank's output block.  The r2c
-        half spectrum keeps Nh = Nz//2 + 1 local (it never divides the z
-        shards): its block is the spectral layout's, or for cell x and y
-        sharded with z replicated (``rfft.embed_spec``)."""
-        if self.problem == "r2c":
-            if self.mesh is None:
-                return None
-            from repro_torch.core.rfft import embed_spec
-            return spec_slices(embed_spec(self.decomp), self.spectrum_shape,
-                               self.mesh.shape, self.mesh.coords)
-        if self.schedule is not None:
-            return self._layout_slices(self._sched_fwd.layout_out)
-        return self._slices(self.opts.output_layout)
+        """The global index ranges of this rank's output block: a c2c
+        plan's are its forward schedule's output layout (a searched one
+        can end on layouts no fixed spec names, e.g. x sharded by the z
+        communicator).  The r2c half spectrum keeps Nh = Nz//2 + 1 local
+        (it never divides the z shards): its block is the spectral
+        layout's, or for cell x and y sharded with z replicated
+        (``rfft.embed_spec``)."""
+        if self.mesh is None:
+            return None
+        if self.problem == "c2c":
+            return self._slices(self._sched_fwd.layout_out.partition_spec())
+        from repro_torch.core.rfft import embed_spec
+        return self._slices(embed_spec(self.decomp), self.spectrum_shape)
 
     def batched_sharding(self, which: str = "input") -> Optional[tuple]:
         """``input_sharding``/``output_sharding`` widened with a leading
@@ -251,11 +247,9 @@ class Croft3D:
             return rfft.irfft3d(y, self.shape[-1], self.mesh, self.decomp,
                                 self.opts, strategy=self.strategy,
                                 device=self.device)
-        if self.schedule is not None:
-            return distributed.scheduled_fft3d(y, self.mesh, self._sched_inv,
-                                               self.opts, norm="backward")
-        return distributed.ifft3d(y, self.mesh, self.decomp, self.opts,
-                                  device=self.device)
+        return distributed.scheduled_fft3d(y.to(self.device), self.mesh,
+                                           self._sched_inv, self.opts,
+                                           norm="backward")
 
     def _forward(self, x: torch.Tensor, h=None,
                  fold: bool = False) -> torch.Tensor:
@@ -268,11 +262,9 @@ class Croft3D:
         if fold:
             raise ValueError("fold=True is the packed r2c folded epilogue; "
                              "c2c filters are always fused in-schedule")
-        if self.schedule is not None:
-            return distributed.scheduled_fft3d(x, self.mesh, self._sched_fwd,
-                                               self.opts, kspace_filter=h)
-        return distributed.fft3d(x, self.mesh, self.decomp, self.opts,
-                                 device=self.device, kspace_filter=h)
+        return distributed.scheduled_fft3d(x.to(self.device), self.mesh,
+                                           self._sched_fwd, self.opts,
+                                           kspace_filter=h)
 
     def forward_filtered(self, x: torch.Tensor, h: torch.Tensor,
                          alpha: float = 1.0,

@@ -28,7 +28,7 @@ import numpy as np
 MeshLike = object
 
 
-def _mesh_axis_sizes(mesh: MeshLike) -> Mapping[str, int]:
+def mesh_axis_sizes(mesh: MeshLike) -> Mapping[str, int]:
     """Axis-name -> size mapping from a mesh or a plain mapping.
 
     Anything with a ``.shape`` name->size mapping (the port's
@@ -40,7 +40,8 @@ def _mesh_axis_sizes(mesh: MeshLike) -> Mapping[str, int]:
     return dict(mesh)
 
 
-def _names(entry) -> tuple:
+def spec_names(entry) -> tuple:
+    """The mesh-axis names of one spec entry (none for None)."""
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
@@ -55,7 +56,7 @@ def spec_slices(spec: Sequence, shape: Sequence[int],
     ``PartitionSpec`` with a tuple entry splits it."""
     out = []
     for entry, n in zip(spec, shape[len(shape) - len(spec):]):
-        names = _names(entry)
+        names = spec_names(entry)
         parts = math.prod(mesh_sizes[a] for a in names)
         if n % parts:
             raise ValueError(f"extent {n} not divisible by {parts} "
@@ -118,7 +119,7 @@ class Decomposition:
         return cls(kind, tuple(axes))
 
     def axis_sizes(self, mesh: MeshLike) -> tuple[int, ...]:
-        sizes = _mesh_axis_sizes(mesh)
+        sizes = mesh_axis_sizes(mesh)
 
         def size(a):
             if isinstance(a, tuple):
@@ -202,7 +203,7 @@ class Decomposition:
                coords: Mapping[str, int], layout: str = "natural") -> tuple:
         """The global index ranges a rank at ``coords`` holds (the
         reference's ``sharding(mesh, layout)`` for one rank)."""
-        return spec_slices(self.spec(layout), shape, _mesh_axis_sizes(mesh),
+        return spec_slices(self.spec(layout), shape, mesh_axis_sizes(mesh),
                            coords)
 
     def is_valid(self, shape: Sequence[int], mesh: MeshLike,

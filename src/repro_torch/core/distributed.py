@@ -20,19 +20,18 @@ from the paper's MPI+OpenMP design to PyTorch:
   FFTW plan reuse               ->  plan-constant caching (plan.py);
                                     disabled = "multiple plans" options 1/3.
 
-The pipeline itself is data: ``schedule.build_c2c`` builds it and
-``schedule.run_schedule`` executes it on each rank's local block.
+The pipeline itself is data: ``schedule.build_c2c`` builds it (and
+``schedule.build_local_c2c`` one device's) and ``schedule.run_schedule``
+executes it on each rank's local block.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Union
 
 import torch
 
-from repro_torch.core import local_fft
 from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.decomposition import Decomposition
 from repro_torch.device import resolve_device
@@ -212,17 +211,6 @@ def transpose_stage(blk: torch.Tensor, *, comm_axis, split_axis: int,
 # public entry points
 # ---------------------------------------------------------------------------
 
-def _norm_scale(shape: Sequence[int], sign: int,
-                norm: Optional[str]) -> Optional[float]:
-    """Global normalization factor (None = no scaling at this call)."""
-    nxyz = shape[-3] * shape[-2] * shape[-1]
-    if norm == "ortho":
-        return 1.0 / math.sqrt(nxyz)
-    if (norm is None or norm == "backward") and sign == +1:
-        return 1.0 / nxyz
-    return None
-
-
 def build_schedule(decomp: Decomposition, opts: FFTOptions,
                    sign: int = -1) -> schedule_lib.Schedule:
     """The c2c schedule ``distributed_fft3d`` will run for this plan
@@ -253,18 +241,30 @@ def inverse_schedule(sched: schedule_lib.Schedule) -> schedule_lib.Schedule:
                                sign=-sched.sign, points=None)
 
 
+def c2c_schedule(mesh, decomp: Optional[Decomposition], opts: FFTOptions,
+                 sign: int = -1) -> schedule_lib.Schedule:
+    """The schedule a fixed c2c plan runs: :func:`build_schedule`'s on a
+    mesh of more than one rank, else the single-device one
+    (``schedule.build_local_c2c``)."""
+    if mesh is None or mesh.size == 1:
+        return schedule_lib.build_local_c2c(sign)
+    return build_schedule(decomp, opts, sign)
+
+
 def _run_plan(x: torch.Tensor, mesh, sched, opts: FFTOptions, scale,
               kspace_filter: Optional[torch.Tensor]) -> torch.Tensor:
     """Run ``sched`` through its plan (``repro_torch.grad.vjp``), so
     ``backward()`` runs the adjoint schedule; without grad the ops are
-    those of the schedule alone."""
+    those of the schedule alone.  Without a mesh ``x`` stays where it
+    is."""
     from repro_torch.grad import vjp
-    x = x.to(mesh.device)
+    if mesh is not None:
+        x = x.to(mesh.device)
     nbatch = x.ndim - 3
     if kspace_filter is None:
         return vjp.linear_plan(mesh, sched, opts, scale, nbatch)(x)
     return vjp.filtered_plan(mesh, sched, opts, scale, nbatch)(
-        x, kspace_filter.to(mesh.device, x.dtype))
+        x, kspace_filter.to(x.device, x.dtype))
 
 
 def scheduled_fft3d(x: torch.Tensor, mesh, sched: schedule_lib.Schedule,
@@ -273,14 +273,20 @@ def scheduled_fft3d(x: torch.Tensor, mesh, sched: schedule_lib.Schedule,
                     kspace_filter: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Run a prebuilt :class:`~repro_torch.core.schedule.Schedule` — the
-    entry point for pipelines that exist only as schedule objects (mixed
-    per-stage transposes, searched orders).  ``x`` is this rank's block of
-    the schedule's input layout (leading batch dims allowed); the same
-    contract as :func:`distributed_fft3d` otherwise, gradients included."""
+    entry point of every plan (``Croft3D`` holds its schedules) and of
+    pipelines that exist only as schedule objects (mixed per-stage
+    transposes, searched orders).  ``x`` is this rank's block of the
+    schedule's input layout (leading batch dims allowed), or with
+    ``mesh=None`` the whole grid, transformed where it lies; the same
+    contract as :func:`distributed_fft3d` otherwise, gradients
+    included."""
     if opts is None:
         opts = FFTOptions()
-    shape = sched.layout_in.global_shape(x.shape, mesh.shape)
-    return _run_plan(x, mesh, sched, opts, _norm_scale(shape, sched.sign, norm),
+    # normalization uses *global* sizes, applied to the local output
+    shape = sched.layout_in.global_shape(
+        x.shape, mesh.shape if mesh is not None else {})
+    return _run_plan(x, mesh, sched, opts,
+                     schedule_lib.norm_factor(shape, sched.sign, norm),
                      kspace_filter)
 
 
@@ -291,7 +297,9 @@ def distributed_fft3d(x: torch.Tensor, mesh, decomp: Decomposition,
                       ) -> torch.Tensor:
     """3-D FFT of a field distributed over ``mesh``; ``x`` is this rank's
     local block (leading batch dims allowed), laid out as the schedule's
-    input layout says.  Every rank calls it collectively.
+    input layout says.  Every rank calls it collectively.  It builds and
+    validates its schedule on every call: a plan (``Croft3D``) does both
+    once.
 
     ``kspace_filter`` (this rank's block of a filter laid out like the
     output spectrum) fuses a pointwise k-space multiply into the
@@ -305,41 +313,54 @@ def distributed_fft3d(x: torch.Tensor, mesh, decomp: Decomposition,
     sched = build_schedule(decomp, opts, sign)
     shape = sched.layout_in.global_shape(x.shape, mesh.shape)
     decomp.validate(shape, mesh, opts.overlap_k, opts.transpose_impl)
-    # normalization uses *global* sizes, applied to the local output
-    return _run_plan(x, mesh, sched, opts, _norm_scale(shape, sign, norm),
-                     kspace_filter)
+    return scheduled_fft3d(x, mesh, sched, opts, norm, kspace_filter)
 
 
 def _local_device(mesh, device) -> torch.device:
     return mesh.device if mesh is not None else resolve_device(device)
 
 
+def _c2c(x, mesh, decomp, sign, opts, norm, device, kspace_filter):
+    """:func:`fft3d`/:func:`ifft3d`: :func:`c2c_schedule`'s schedule, a
+    decomposition's validated on every call, through the executor."""
+    if opts is None:
+        opts = FFTOptions()
+    sched = c2c_schedule(mesh, decomp, opts, sign)
+    x = x.to(_local_device(mesh, device))
+    if sched.comm_stages():
+        decomp.validate(sched.layout_in.global_shape(x.shape, mesh.shape),
+                        mesh, opts.overlap_k, opts.transpose_impl)
+    return scheduled_fft3d(x, mesh, sched, opts, norm, kspace_filter)
+
+
 def fft3d(x, mesh=None, decomp=None, opts: Optional[FFTOptions] = None,
           norm: Optional[str] = None, device=None,
           kspace_filter: Optional[torch.Tensor] = None):
-    """Forward 3-D FFT; the single-device path when no mesh is given (on
-    ``device``: the CUDA card unless the caller passes ``device="cpu"``),
-    with the k-space multiply after it when ``kspace_filter`` is given."""
-    if opts is None:
-        opts = FFTOptions()
-    if mesh is None or mesh.size == 1:
-        y = local_fft.fft3d_local(x.to(_local_device(mesh, device)), -1,
-                                  impl=opts.local_impl,
-                                  plan_cache=opts.plan_cache, norm=norm)
-        if kspace_filter is not None:
-            from repro_torch.grad import vjp
-            y = vjp.spectral_scale(y, kspace_filter.to(y.device, y.dtype))
-        return y
-    return distributed_fft3d(x, mesh, decomp, -1, opts, norm, kspace_filter)
+    """Forward 3-D FFT, the k-space multiply fused in when
+    ``kspace_filter`` is given.  Without a mesh (or on a mesh of one
+    rank) the whole grid on ``device``: the CUDA card unless the caller
+    passes ``device="cpu"``."""
+    return _c2c(x, mesh, decomp, -1, opts, norm, device, kspace_filter)
 
 
 def ifft3d(x, mesh=None, decomp=None, opts: Optional[FFTOptions] = None,
            norm: Optional[str] = "backward", device=None):
     """Inverse 3-D FFT (paper eq. 2: 1/(NxNyNz) normalization)."""
-    if opts is None:
-        opts = FFTOptions()
-    if mesh is None or mesh.size == 1:
-        return local_fft.fft3d_local(x.to(_local_device(mesh, device)), +1,
-                                     impl=opts.local_impl,
-                                     plan_cache=opts.plan_cache, norm=norm)
-    return distributed_fft3d(x, mesh, decomp, +1, opts, norm)
+    return _c2c(x, mesh, decomp, +1, opts, norm, device, None)
+
+
+def fft3d_local(x: torch.Tensor, sign: int = -1, *, impl="matmul",
+                plan_cache: bool = True,
+                norm: Optional[str] = None) -> torch.Tensor:
+    """Single-device 3-D FFT over the last three axes (x, y, z order),
+    where ``x`` lies: ``build_local_c2c`` through the executor.
+
+    ``impl`` may be a 3-tuple of implementations, one per axis in
+    transform order (x, y, z) — the per-stage form of
+    ``FFTOptions.local_impl``.
+    """
+    if x.ndim < 3:
+        raise ValueError(f"fft3d_local needs >= 3 dims, got {x.ndim}")
+    return scheduled_fft3d(x, None, schedule_lib.build_local_c2c(sign),
+                           FFTOptions(local_impl=impl, plan_cache=plan_cache),
+                           norm)

@@ -1,7 +1,7 @@
-"""Local (single-device) 1-D FFT building blocks.
+"""Local (single-device) 1-D FFTs: the executor's per-stage transform.
 
-Port of ``repro/core/local_fft.py``.  CROFT calls FFTW's 1-D routine along
-each axis; here four interchangeable implementations:
+Port of ``repro/core/local_fft.py``'s 1-D FFTs.  CROFT calls FFTW's 1-D
+routine along each axis; here four interchangeable implementations:
 
 - ``fft_matmul``   four-step via complex products (full FP32; the
                    six-step recursion above ``MAX_TWO_LEVEL``)
@@ -13,8 +13,9 @@ each axis; here four interchangeable implementations:
 
 ``stockham`` and ``xla`` operate along the *last* axis and ``fft_1d``
 moves the axis for them; ``matmul`` and the kernel read the transform
-axis where it lies.  Forward sign=-1, inverse sign=+1 unnormalized
-(normalization applied at the 3-D level, eq. (2) of the paper).
+axis where it lies.  Forward sign=-1, inverse sign=+1 unnormalized: a
+3-D transform, one device's too, is a schedule of these
+(``core/schedule.py``), scaled by ``schedule.normalize``.
 """
 
 from __future__ import annotations
@@ -259,63 +260,3 @@ def fft_1d(x: torch.Tensor, axis: int, sign: int = -1, *,
     else:
         raise KeyError(impl)
     return fn(x.movedim(axis, -1)).movedim(-1, axis)
-
-
-def fft3d_local(x: torch.Tensor, sign: int = -1, *, impl="matmul",
-                plan_cache: bool = True,
-                norm: Optional[str] = None) -> torch.Tensor:
-    """Single-device 3-D FFT over the last three axes (x, y, z order).
-
-    ``impl`` may be a 3-tuple of implementations, one per axis in
-    transform order (x, y, z) — the per-stage form of
-    ``FFTOptions.local_impl``.
-    """
-    if x.ndim < 3:
-        raise ValueError(f"fft3d_local needs >= 3 dims, got {x.ndim}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        from repro_torch.grad import vjp
-        return vjp.Linear.apply(x, _Local3D(sign, impl, plan_cache, norm))
-    return _fft3d(x, sign, impl, plan_cache, norm)
-
-
-def _fft3d(x, sign, impl, plan_cache, norm):
-    for stage, ax in enumerate((-3, -2, -1)):
-        stage_impl = impl[stage] if isinstance(impl, (tuple, list)) else impl
-        with span("stage:fft", "fft"):
-            x = fft_1d(x, ax, sign, impl=stage_impl, plan_cache=plan_cache)
-    return apply_norm(x, sign, norm)
-
-
-class _Local3D:
-    """:func:`fft3d_local` as a linear plan (``grad.vjp.Linear``).
-    ``y = c F_s x`` with a real norm factor c, so ``x.grad = c F_{-s} g``:
-    the same kernels with the sign flipped and the same factor
-    (``apply_norm`` with the forward's sign)."""
-
-    def __init__(self, sign, impl, plan_cache, norm):
-        self.sign, self.impl, self.plan_cache, self.norm = (sign, impl,
-                                                            plan_cache, norm)
-
-    def run(self, x):
-        return _fft3d(x, self.sign, self.impl, self.plan_cache, self.norm)
-
-    def adjoint(self, g):
-        return apply_norm(_fft3d(g, -self.sign, self.impl, self.plan_cache,
-                                 "none"), self.sign, self.norm)
-
-
-def apply_norm(x: torch.Tensor, sign: int, norm: Optional[str]) -> torch.Tensor:
-    """Paper convention (eq. 2): forward unnormalized, inverse 1/(NxNyNz).
-    A scale is an ``inverse:normalize`` span."""
-    nxyz = x.shape[-3] * x.shape[-2] * x.shape[-1]
-    if norm is None or norm == "backward":
-        if sign != +1:
-            return x
-        with span("inverse:normalize", "epilogue", x.device):
-            return x / nxyz
-    if norm == "ortho":
-        with span("inverse:normalize", "epilogue", x.device):
-            return x / math.sqrt(nxyz)
-    if norm == "none":
-        return x
-    raise ValueError(f"unknown norm {norm!r}")

@@ -598,7 +598,7 @@ class Mesh:
         own adjoint, which reads one replica, is right only where every
         replica holds the same gradient (the FFT plans)."""
         spec, view = tuple(spec), tuple(view)
-        reduce = _axis_arg(reduce)
+        reduce = axis_arg(reduce)
         if view == spec and (reduce is None or not (
                 torch.is_grad_enabled() and blk.requires_grad)):
             return blk
@@ -736,7 +736,7 @@ def _tiling(boxes: list, extents) -> Optional[tuple]:
     return counts, order
 
 
-def _axis_arg(axes):
+def axis_arg(axes):
     """An axis argument of the collectives from a name, a tuple of names
     or None: a 1-tuple is its name, an empty one None."""
     if axes is None or isinstance(axes, str):

@@ -19,10 +19,14 @@ Port of ``repro/core/schedule.py``.  The paper's pipeline (§4.1 steps
   ``run_schedule``  the single executor: owns K-chunked overlap, the
                  chunk-indivisible fallback (``effective_k``), per-stage
                  ``local_impl`` selection, and batch-axis offsetting.
+  ``norm_factor`` / ``normalize``  the one normalization rule and the
+                 one scaled pass (``inverse:normalize``) every plan
+                 applies to the executor's output.
 
 :func:`build_c2c` covers every complex pipeline (pencil / slab / cell,
-natural / spectral, forward / from-spectral); ``describe()`` renders the
-same text as the reference, so both are held to the same goldens;
+natural / spectral, forward / from-spectral) and :func:`build_local_c2c`
+the single-device one; ``describe()`` renders the same text as the
+reference, so both are held to the same goldens;
 ``repro_torch.real.pipeline`` builds the packed two-for-one real
 pipelines on the same IR with the stage ops below.  The executor runs
 every decomposition: the cell regroup and a folded mesh axis transpose
@@ -49,25 +53,25 @@ from repro_torch.resil import inject as inject_lib
 
 AxisName = Union[str, tuple]
 
-_DIMS = ("x", "y", "z")
+DIMS = ("x", "y", "z")
 
 
 class ScheduleError(ValueError):
     """A builder produced an inconsistent pipeline (caught at build time)."""
 
 
-def _flat(axis) -> tuple:
+def flat_axes(axis) -> tuple:
     """Flatten a (possibly nested-folded) mesh axis spec to bare names."""
     if isinstance(axis, tuple):
         out = []
         for a in axis:
-            out.extend(_flat(a))
+            out.extend(flat_axes(a))
         return tuple(out)
     return (axis,)
 
 
 def _axis_str(axis: AxisName) -> str:
-    return "+".join(_flat(axis))
+    return "+".join(flat_axes(axis))
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +145,7 @@ class Layout:
                          concat_axis: int) -> "Layout":
         """The concat dim loses the communicator's shards (its local extent
         grows), the split dim gains them — a global transpose."""
-        names = _flat(comm_axis)
+        names = flat_axes(comm_axis)
         axes = list(self.axes)
         cat = axes[concat_axis]
         missing = [n for n in names if n not in cat.shards]
@@ -179,8 +183,8 @@ class Layout:
 def layout_for(decomp, which: str = "natural", real: bool = False) -> Layout:
     """The :class:`Layout` of a decomposition's natural/spectral spec."""
     axes = tuple(
-        LayoutAxis(dim, () if entry is None else _flat(entry))
-        for dim, entry in zip(_DIMS, decomp.spec(which)))
+        LayoutAxis(dim, () if entry is None else flat_axes(entry))
+        for dim, entry in zip(DIMS, decomp.spec(which)))
     return Layout(axes, real=real)
 
 
@@ -224,7 +228,7 @@ class PackTwo(StageOp):
             layout.with_den(self.pair_axis, mul=2), real=False)
 
     def describe(self):
-        return f"pack2[{_DIMS[self.pair_axis]}]"
+        return f"pack2[{DIMS[self.pair_axis]}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +252,7 @@ class UnpackTwo(StageOp):
             self.z_axis, mul=2)
 
     def describe(self):
-        return f"unpack2[{_DIMS[self.pair_axis]}]"
+        return f"unpack2[{DIMS[self.pair_axis]}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,7 +276,7 @@ class RepackHalves(StageOp):
             self.z_axis, div=2)
 
     def describe(self):
-        return f"repack2[{_DIMS[self.pair_axis]}]"
+        return f"repack2[{DIMS[self.pair_axis]}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,7 +296,7 @@ class SplitPairs(StageOp):
             layout.with_den(self.pair_axis, div=2), real=True)
 
     def describe(self):
-        return f"split2[{_DIMS[self.pair_axis]}]"
+        return f"split2[{DIMS[self.pair_axis]}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -439,6 +443,14 @@ class Schedule:
             cur = op.transform(cur)
         object.__setattr__(self, "points", tuple(points))
         object.__setattr__(self, "_layout_out", cur)
+        # hashed once: every transform looks its plan up by its schedule
+        # (``grad.vjp``'s caches), and ``points`` follows from the rest
+        object.__setattr__(self, "_hash", hash((
+            self.name, self.sign, self.layout_in, self.stages,
+            self.epilogue, self.extra_comms)))
+
+    def __hash__(self) -> int:
+        return self._hash
 
     @property
     def layout_out(self) -> Layout:
@@ -493,7 +505,7 @@ class Schedule:
         out = []
         for i, st in self.comm_stages():
             pts = self.points[i]
-            csize = math.prod(sizes[n] for n in _flat(st.comm_axis))
+            csize = math.prod(sizes[n] for n in flat_axes(st.comm_axis))
             out.append({
                 "name": st.name,
                 "bytes": pts.comm.bytes(shape, axis_sizes, complex_itemsize),
@@ -519,7 +531,7 @@ class Schedule:
         for i, (st, pts) in enumerate(zip(self.stages, self.points)):
             parts = [op.describe() for op in st.prologue]
             if st.fft_axis is not None:
-                parts.append(f"fft[{_DIMS[st.fft_axis]}]@s{st.impl_stage}")
+                parts.append(f"fft[{DIMS[st.fft_axis]}]@s{st.impl_stage}")
             parts.extend(op.describe() for op in st.epilogue)
             if st.comm_axis is not None:
                 a2a = (f"a2a[{_axis_str(st.comm_axis)}] split={st.split_axis} "
@@ -781,6 +793,31 @@ def run_schedule(blk: torch.Tensor, sched: Schedule, opts, mesh,
     return blk
 
 
+def norm_factor(shape: Sequence[int], sign: int,
+                norm: Optional[str]) -> Optional[float]:
+    """The real factor scaling a transform of the global grid ``shape``
+    (None: none).  None and ``"backward"``: 1/(NxNyNz) on the inverse
+    (paper eq. 2); ``"ortho"``: 1/sqrt(NxNyNz) both ways; ``"none"``:
+    none.  Any other name raises."""
+    nxyz = shape[-3] * shape[-2] * shape[-1]
+    if norm is None or norm == "backward":
+        return 1.0 / nxyz if sign == +1 else None
+    if norm == "ortho":
+        return 1.0 / math.sqrt(nxyz)
+    if norm == "none":
+        return None
+    raise ValueError(f"unknown norm {norm!r}")
+
+
+def normalize(y: torch.Tensor, factor: Optional[float]) -> torch.Tensor:
+    """``y`` times a :func:`norm_factor`, as one ``inverse:normalize``
+    span (``y`` itself when the factor is None)."""
+    if factor is None:
+        return y
+    with span("inverse:normalize", "epilogue", y.device):
+        return y * factor
+
+
 # ---------------------------------------------------------------------------
 # complex-transform builders (pencil / slab / cell)
 # ---------------------------------------------------------------------------
@@ -861,8 +898,8 @@ def build_c2c(decomp, *, sign: int = -1, output_layout: str = "natural",
             raise ScheduleError("cell decomposition returns natural layout "
                                 "only")
         ax_x, ax_y, ax_z = decomp.axes
-        fold_y = (tuple(ax_y) + _flat(ax_x) if isinstance(ax_y, tuple)
-                  else (ax_y,) + _flat(ax_x))
+        fold_y = (tuple(ax_y) + flat_axes(ax_x) if isinstance(ax_y, tuple)
+                  else (ax_y,) + flat_axes(ax_x))
         if len(fold_y) == 1:
             fold_y = fold_y[0]
         stages = [Stage("regroup-x", comm_axis=ax_x, split_axis=1,
@@ -872,3 +909,14 @@ def build_c2c(decomp, *, sign: int = -1, output_layout: str = "natural",
                          concat_axis=1, chunk_axis=2)]
     return Schedule(f"{kind}/c2c/{output_layout}", sign,
                     layout_for(decomp, "natural"), tuple(stages))
+
+
+def build_local_c2c(sign: int = -1) -> Schedule:
+    """Schedule for the complex 3-D transform of one device's whole grid:
+    x, y, then z, with no collective.  Meshless plans and plans on a
+    mesh of one rank run it."""
+    return Schedule("local/c2c", sign, Layout(tuple(LayoutAxis(d)
+                                                     for d in DIMS)),
+                    (Stage("x-fft", fft_axis=0, impl_stage=0),
+                     Stage("y-fft", fft_axis=1, impl_stage=1),
+                     Stage("z-fft", fft_axis=2, impl_stage=2)))

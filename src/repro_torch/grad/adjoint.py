@@ -42,7 +42,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.schedule import (_DIMS, PackTwo, RepackHalves, Schedule,
+from repro_torch.core.schedule import (DIMS, PackTwo, RepackHalves, Schedule,
                                        ScheduleError, SpectralScale,
                                        SplitPairs, Stage, StageOp, UnpackTwo)
 
@@ -166,7 +166,7 @@ class PackTwoT(StageOp):
             layout.with_den(self.pair_axis, div=2), real=True)
 
     def describe(self):
-        return f"pack2T[{_DIMS[self.pair_axis]}]"
+        return f"pack2T[{DIMS[self.pair_axis]}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +186,7 @@ class SplitPairsT(StageOp):
             layout.with_den(self.pair_axis, mul=2), real=False)
 
     def describe(self):
-        return f"split2T[{_DIMS[self.pair_axis]}]"
+        return f"split2T[{DIMS[self.pair_axis]}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,7 +207,7 @@ class UnpackTwoT(StageOp):
             self.z_axis, div=2)
 
     def describe(self):
-        return f"unpack2T[{_DIMS[self.pair_axis]}]"
+        return f"unpack2T[{DIMS[self.pair_axis]}]"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,7 +228,7 @@ class RepackHalvesT(StageOp):
             self.z_axis, mul=2)
 
     def describe(self):
-        return f"repack2T[{_DIMS[self.pair_axis]}]"
+        return f"repack2T[{DIMS[self.pair_axis]}]"
 
 
 def adjoint_ops(op: StageOp) -> tuple:
@@ -378,13 +378,13 @@ def adjoint_schedule(sched: Schedule) -> Schedule:
 # ---------------------------------------------------------------------------
 # out-of-body plane transposes (packed pipeline's DC/Nyquist fold/unfold).
 # ``gather``/``sl`` as in ``real.pipeline``: None on one device; on a mesh
-# the plane gather of the pipeline's own ``_plane_access`` and this rank's
+# the plane gather of the pipeline's own ``plane_access`` and this rank's
 # (x, y) slice.
 # ---------------------------------------------------------------------------
 
 def _reversed(p: torch.Tensor, gather=None, sl=None) -> torch.Tensor:
-    from repro_torch.real.pipeline import _reversed_plane
-    return _reversed_plane(p, gather, sl)
+    from repro_torch.real.pipeline import reversed_plane
+    return reversed_plane(p, gather, sl)
 
 
 def unfold_dc_plane_t(ct: torch.Tensor, gather=None, sl=None) -> torch.Tensor:

@@ -27,15 +27,17 @@ spectrum.  The k-space multiply ``y = s * h`` has cotangents
 kernel.  So for a complex input ``x.grad == conj(jax_vjp(conj(g)))``,
 for a real one ``x.grad == jax_vjp(conj(g))``.
 
-Scaling: norm factors are real scalars, so the same ``scale`` rides both
-directions.  The linear plans save no tensors; the filtered ones save
-the spectrum ``s`` and ``h``.
+Scaling: norm factors (``schedule.norm_factor``) are real scalars, so
+the same ``scale`` rides both directions, applied by
+``schedule.normalize``.  The linear plans save no tensors; the filtered
+ones save the spectrum ``s`` and ``h``.
 
 Plans are cached per ``(mesh, schedule, opts, scale, nbatch)``, as the
 reference caches its ``custom_vjp`` instances (a ``Mesh`` hashes by
-identity); ``Croft3D.release`` clears them.  The primal is unchanged:
-without grad (grad mode off, or no input requiring it) each plan runs
-exactly the ops the entry points ran before, the filtered ones fused.
+identity; a meshless plan's mesh is None); ``Croft3D.release`` clears
+them.  The primal is unchanged: without grad (grad mode off, or no
+input requiring it) each plan runs exactly the ops the entry points ran
+before, the filtered ones fused.
 
 Collectives in the backward pass.  The backward runs every collective of
 the adjoint schedule, so **every rank must call** ``backward()`` on a
@@ -52,9 +54,9 @@ import functools
 import torch
 
 from repro_torch.core import schedule as schedule_lib
+from repro_torch.core.schedule import normalize
 from repro_torch.grad.adjoint import (adjoint_schedule, fold_dc_plane_t,
                                       unfold_dc_plane_t)
-from repro_torch.obs.tracer import span
 
 
 def needs_grad(*ts) -> bool:
@@ -66,14 +68,6 @@ def needs_grad(*ts) -> bool:
 def conj(t: torch.Tensor) -> torch.Tensor:
     """The conjugate in memory (a real tensor is its own)."""
     return torch.conj_physical(t) if t.is_complex() else t
-
-
-def _scaled(y: torch.Tensor, scale) -> torch.Tensor:
-    """``y`` times a plan's norm factor (an ``inverse:normalize`` span)."""
-    if scale is None:
-        return y
-    with span("inverse:normalize", "epilogue", y.device):
-        return y * scale
 
 
 def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
@@ -151,7 +145,7 @@ def spectral_scale(s: torch.Tensor, h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# complex transform (distributed_fft3d's body): y = scale * F x
+# complex transform (every c2c plan, meshless included): y = scale * F x
 # ---------------------------------------------------------------------------
 
 def _pure_complex(sched: schedule_lib.Schedule) -> bool:
@@ -175,14 +169,14 @@ class LinearPlan(_Plan):
             self._flipped = inverse_schedule(sched)
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
-        return _scaled(schedule_lib.run_schedule(x, self.schedule, self.opts,
-                                                 self.mesh), self.scale)
+        return normalize(schedule_lib.run_schedule(
+            x, self.schedule, self.opts, self.mesh), self.scale)
 
     def adjoint(self, g: torch.Tensor) -> torch.Tensor:
         if self._flipped is not None:
-            return _scaled(schedule_lib.run_schedule(
+            return normalize(schedule_lib.run_schedule(
                 g, self._flipped, self.opts, self.mesh), self.scale)
-        return conj(_scaled(schedule_lib.run_schedule(
+        return conj(normalize(schedule_lib.run_schedule(
             conj(g), self.adjoint_schedule, self.opts, self.mesh), self.scale))
 
 
@@ -208,7 +202,7 @@ class FilteredPlan:
         lin = self.linear
         if needs_grad(x, h):
             return spectral_scale(lin(x), h)
-        return _scaled(schedule_lib.run_schedule(
+        return normalize(schedule_lib.run_schedule(
             x, self.fused, lin.opts, lin.mesh, {"filter": h}), lin.scale)
 
 
@@ -240,7 +234,7 @@ class _Packed:
 
     def _planes(self, shape):
         from repro_torch.real import pipeline
-        return pipeline._plane_access(self.mesh, self.decomp, shape)
+        return pipeline.plane_access(self.mesh, self.decomp, shape)
 
     def _run(self, blk, sched, operands=None):
         return schedule_lib.run_schedule(blk, sched, self.opts, self.mesh,
@@ -275,8 +269,8 @@ class PackedRfftPlan(_Packed, _Plan):
         gather, sl = self._planes(shape)
         packed = self.mesh.reshard(body, shape[:2] + (shape[2] // 2,),
                                    self.nat, self.spect)
-        return _scaled(pipeline.unfold_dc_plane(packed, gather, sl),
-                       self.scale)
+        return normalize(pipeline.unfold_dc_plane(packed, gather, sl),
+                         self.scale)
 
     def finish_t(self, g: torch.Tensor) -> torch.Tensor:
         """The unconjugated transpose of :meth:`finish` on ``conj(g)``:
@@ -284,7 +278,7 @@ class PackedRfftPlan(_Packed, _Plan):
         nx, ny, nh = self._grid(g)
         shape = (nx, ny, 2 * (nh - 1))
         gather, sl = self._planes(shape)
-        ctp = unfold_dc_plane_t(_scaled(conj(g), self.scale), gather, sl)
+        ctp = unfold_dc_plane_t(normalize(conj(g), self.scale), gather, sl)
         return self.mesh.reshard(ctp.contiguous(), (nx, ny, nh - 1),
                                  self.spect, self.nat)
 
@@ -377,12 +371,13 @@ class PackedIrfftPlan(_Packed, _Plan):
         body_in = self.mesh.reshard(packed.contiguous(),
                                     (nx, ny, self.nz // 2), self.spect,
                                     self.nat)
-        return _scaled(self._run(body_in, self.schedule), self.scale)
+        return normalize(self._run(body_in, self.schedule), self.scale)
 
     def adjoint(self, g: torch.Tensor) -> torch.Tensor:
         shape = self._grid(g)
         gather, sl = self._planes(shape)
-        pbar = self._run(_scaled(conj(g), self.scale), self.adjoint_schedule)
+        pbar = self._run(normalize(conj(g), self.scale),
+                         self.adjoint_schedule)
         pbar = self.mesh.reshard(pbar, shape[:2] + (self.nz // 2,), self.nat,
                                  self.spect)
         return conj(fold_dc_plane_t(pbar, self.nz, gather, sl))

@@ -55,7 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.core.decomposition import _names, spec_slices
+from repro_torch.core.decomposition import spec_names, spec_slices
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import kvcache as kc
@@ -109,7 +109,7 @@ class Ctx(NamedTuple):
 
 def dp_axes(shard: Optional[ShardCtx]) -> tuple:
     """The mesh axes the batch is split over."""
-    return () if shard is None else _names(shard.dp)
+    return () if shard is None else spec_names(shard.dp)
 
 
 def grad_axes(shard: Optional[ShardCtx]) -> tuple:
@@ -185,7 +185,7 @@ def _gather(t: torch.Tensor, name: str, ctx: Ctx, want=None):
     want = want or (None,) * len(spec)
     view = tuple(e if e is not None and e == w else None
                  for e, w in zip(spec, want))
-    kept = {a for e in view for a in _names(e)}
+    kept = {a for e in view for a in spec_names(e)}
     reduce = tuple(a for a in grad_axes(sh) if a not in kept)
     out = sh.mesh.gather_sum(t, shape, spec, view, reduce)
     for d, (w, e) in enumerate(zip(want, view)):

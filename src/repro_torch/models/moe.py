@@ -151,9 +151,9 @@ def aux_load_balance_loss(p: MoE, x: torch.Tensor, m: MoESpec, mesh=None,
     psum = probs.sum(0)
     n_tok = torch.tensor([float(xt.shape[0])], device=x.device)
     if mesh is not None and axes:
-        from repro_torch.core.mesh import _axis_arg
+        from repro_torch.core.mesh import axis_arg
         tot = mesh.all_reduce(torch.cat([hits, psum.detach(), n_tok]),
-                              _axis_arg(axes)).wait()
+                              axis_arg(axes)).wait()
         e = m.n_experts
         hits, n_tok = tot[:e], tot[-1:]
         frac_tokens = hits / hits.sum()

@@ -65,7 +65,7 @@ def _line_up(mesh) -> None:
 def _slowest(mesh, value: float) -> float:
     """The slowest rank's ``value`` (one MAX all-reduce; identity off a
     mesh)."""
-    return measure._agree(mesh, 0, value)[1]
+    return measure.agree(mesh, 0, value)[1]
 
 
 def _timed(tracer, fn, name, cat, iters, span_args, mesh, device):
@@ -73,13 +73,13 @@ def _timed(tracer, fn, name, cat, iters, span_args, mesh, device):
     runs (one untimed warm-up), one span per run; returns
     (median_s, last_output)."""
     out = fn()
-    measure._sync(device)
+    measure.sync(device)
     times = []
     for n in range(iters):
         _line_up(mesh)
         t0 = time.monotonic()
         out = fn()
-        measure._sync(device)
+        measure.sync(device)
         t1 = time.monotonic()
         times.append(t1 - t0)
         tracer.complete(name, cat, t0, t1, dict(span_args, iter=n))
@@ -136,7 +136,7 @@ def trace_forward(plan, x, tracer=None, iters: int = 3,
     with tracer.span("e2e", "plan", plan=label):
         t0 = time.monotonic()
         y = plan.forward(x)
-        measure._sync(device)
+        measure.sync(device)
         e2e_s = time.monotonic() - t0
     e2e_s = _slowest(mesh, e2e_s)
 

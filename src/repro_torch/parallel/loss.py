@@ -99,8 +99,8 @@ def chunked_cross_entropy(hidden: torch.Tensor, labels: torch.Tensor,
         if mesh is None or over is None:
             raise ValueError("a sharded loss (axes) needs the mesh and "
                              "the axes its token blocks split over")
-        from repro_torch.core.mesh import _axis_arg
-        over = _axis_arg(over)
+        from repro_torch.core.mesh import axis_arg
+        over = axis_arg(over)
         local = torch.stack([nll_sum.detach().float(), z_sum.detach().float(),
                              cnt.float(), correct.float()])
         tot = local if over is None else mesh.all_reduce(local, over).wait()

@@ -28,8 +28,9 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import local_fft
-from repro_torch.core.decomposition import _mesh_axis_sizes
-from repro_torch.core.distributed import FFTOptions, _norm_scale
+from repro_torch.core.decomposition import mesh_axis_sizes
+from repro_torch.core.distributed import FFTOptions
+from repro_torch.core.schedule import norm_factor, normalize
 from repro_torch.obs.tracer import span
 from repro_torch.real import packing
 from repro_torch.real.pipeline import (PAIR_AXIS, build_packed_forward,
@@ -45,7 +46,7 @@ def is_multidevice(mesh) -> bool:
     """True for a mesh of more than one rank (the reference's
     ``math.prod(mesh.devices.shape) > 1``)."""
     return mesh is not None and math.prod(
-        _mesh_axis_sizes(mesh).values()) > 1
+        mesh_axis_sizes(mesh).values()) > 1
 
 
 def _choose_pair_axis(nx: int, ny: int) -> Optional[int]:
@@ -106,8 +107,7 @@ def _rfft_packed(x, opts, norm):
     # the fold stays valid under the (linear) y/x transforms; unfold the
     # DC/Nyquist plane once, at the end, like the distributed pipeline
     y = unfold_dc_plane(S) if fold else S
-    scale = _norm_scale((nx, ny, nz), -1, norm)
-    return y if scale is None else y * scale
+    return normalize(y, norm_factor((nx, ny, nz), -1, norm))
 
 
 class _LocalRfft:
@@ -129,9 +129,7 @@ class _LocalRfft:
         (nx, ny, nz), opts = self.shape, self.opts
         pair_axis = _choose_pair_axis(nx, ny)
         fold = nz % 2 == 0
-        ct = vjp.conj(g)
-        scale = _norm_scale((nx, ny, nz), -1, self.norm)
-        ct = ct if scale is None else ct * scale
+        ct = normalize(vjp.conj(g), norm_factor((nx, ny, nz), -1, self.norm))
         if fold:
             ct = adjoint.unfold_dc_plane_t(ct)
         for stage, ax in ((0, -3), (1, -2)):
@@ -177,9 +175,8 @@ def _irfft_packed(y, nz, opts, norm):
     with span("stage:fft", "fft"):
         c = local_fft.fft_1d(C, -1, +1, impl=opts.stage_impl(2),
                              plan_cache=opts.plan_cache)
-    x = packing.split_pairs(c, pair_axis)
-    with span("inverse:normalize", "epilogue", x.device):
-        return x * _norm_scale((nx, ny, nz), +1, norm)
+    return normalize(packing.split_pairs(c, pair_axis),
+                     norm_factor((nx, ny, nz), +1, norm))
 
 
 class _LocalIrfft:
@@ -199,7 +196,7 @@ class _LocalIrfft:
         (nx, ny, nh), nz, opts = self.shape, self.nz, self.opts
         pair_axis = _choose_pair_axis(nx, ny)
         fold = nz % 2 == 0
-        ct = g * _norm_scale((nx, ny, nz), +1, self.norm)
+        ct = normalize(g, norm_factor((nx, ny, nz), +1, self.norm))
         ct = adjoint.split_pairs_t(ct, pair_axis % ct.ndim)
         ct = local_fft.fft_1d(ct, -1, +1, impl=opts.stage_impl(0),
                               plan_cache=opts.plan_cache)

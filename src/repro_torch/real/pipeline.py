@@ -45,11 +45,11 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.decomposition import Decomposition, _mesh_axis_sizes
-from repro_torch.core.distributed import FFTOptions, _norm_scale
+from repro_torch.core.decomposition import Decomposition, mesh_axis_sizes
+from repro_torch.core.distributed import FFTOptions
 from repro_torch.core.schedule import (ExtraComm, PackTwo, RepackHalves,
                                        Schedule, SplitPairs, Stage, UnpackTwo,
-                                       layout_for)
+                                       layout_for, norm_factor)
 from repro_torch.obs.tracer import span
 from repro_torch.real import packing
 
@@ -71,7 +71,7 @@ def packed_unsupported_reason(shape: Sequence[int], decomp: Decomposition,
     if nz % 2:
         return f"packed two-for-one needs even Nz, got {nz}"
     try:
-        sizes = _mesh_axis_sizes(mesh_or_sizes)
+        sizes = mesh_axis_sizes(mesh_or_sizes)
         axis_sizes = decomp.axis_sizes(sizes)
     except (KeyError, TypeError) as e:
         return f"decomposition axes unresolvable on this mesh: {e}"
@@ -178,7 +178,7 @@ def build_packed_inverse(decomp: Decomposition, nz: int) -> Schedule:
 # ``sl`` is this rank's (x, y) slice of it.
 # ---------------------------------------------------------------------------
 
-def _reversed_plane(p: torch.Tensor, gather=None, sl=None) -> torch.Tensor:
+def reversed_plane(p: torch.Tensor, gather=None, sl=None) -> torch.Tensor:
     """conj(P[-kx, -ky]) over this rank's (x, y) range."""
     full = p if gather is None else gather(p)
     rev = torch.conj(packing.negate_freq(packing.negate_freq(full, -1), -2))
@@ -196,7 +196,7 @@ def unfold_dc_plane(packed: torch.Tensor, gather=None,
     """
     with span("real:unfold_dc_plane", "unpack", packed.device):
         g = packed[..., 0]
-        rev = _reversed_plane(g, gather, sl)
+        rev = reversed_plane(g, gather, sl)
         dc = 0.5 * (g + rev)
         nyq = -0.5j * (g - rev)
         return torch.cat([dc[..., None], packed[..., 1:], nyq[..., None]],
@@ -208,7 +208,7 @@ def _hermitian_plane(p: torch.Tensor, gather=None, sl=None) -> torch.Tensor:
     ``numpy.fft.irfftn`` implicitly does to the kz=0 and kz=Nyquist
     planes of a non-Hermitian half spectrum (the identity for spectra of
     a real field)."""
-    return 0.5 * (p + _reversed_plane(p, gather, sl))
+    return 0.5 * (p + reversed_plane(p, gather, sl))
 
 
 def fold_dc_plane(y: torch.Tensor, nz: int, gather=None,
@@ -240,7 +240,7 @@ def real_input_spec(decomp: Decomposition) -> tuple:
     return decomp.spectral_spec()
 
 
-def _plane_access(mesh, decomp: Decomposition, shape: Sequence[int]):
+def plane_access(mesh, decomp: Decomposition, shape: Sequence[int]):
     """(gather, slice) for the DC/Nyquist planes of a spectral-layout
     block of the (Nx, Ny, ...) grid: the (x, y) spec of the spectral
     layout and this rank's range of it."""
@@ -282,7 +282,7 @@ def packed_rfft3d(x: torch.Tensor, mesh, decomp: Decomposition,
     reason = packed_unsupported_reason(shape, decomp, mesh, opts)
     if reason is not None:
         raise ValueError(f"packed r2c unsupported here: {reason}")
-    scale = _norm_scale(shape, -1, norm)
+    scale = norm_factor(shape, -1, norm)
     x = x.to(mesh.device)
     nbatch = x.ndim - 3
     if kspace_filter is not None and fold_filter:
@@ -320,5 +320,5 @@ def packed_irfft3d(y: torch.Tensor, nz: int, mesh, decomp: Decomposition,
     if reason is not None:
         raise ValueError(f"packed c2r unsupported here: {reason}")
     plan = vjp.packed_irfft_plan(mesh, decomp, nz, opts,
-                                 _norm_scale(shape, +1, norm), y.ndim - 3)
+                                 norm_factor(shape, +1, norm), y.ndim - 3)
     return plan(y.to(mesh.device))

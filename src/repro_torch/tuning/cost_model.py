@@ -350,7 +350,7 @@ def _searched_schedule_cost(shape: Sequence[int], cand, sched: Schedule,
     and the stage times sum.  Fixed-builder candidates keep the legacy
     combine so existing rankings and pins are bit-identical.
     """
-    from repro_torch.core.schedule import _flat, stage_transpose_impl
+    from repro_torch.core.schedule import flat_axes, stage_transpose_impl
     opts = cand.opts
     itemsize = _itemsize(dtype)
     p = cand.decomp.n_procs(axis_sizes)
@@ -425,13 +425,13 @@ def predicted_collectives(sched: Schedule, shape: Sequence[int],
     schedule — what :func:`counted_collectives` is held against: one ``all-to-all`` per effective chunk of a fused stage,
     ``K_eff * (P-1)`` ``collective-permute`` rounds for ring/pairwise,
     one fused all-to-all per out-of-body reshard."""
-    from repro_torch.core.schedule import _flat, stage_transpose_impl
+    from repro_torch.core.schedule import flat_axes, stage_transpose_impl
     sizes = dict(axis_sizes)
     counts = {"all-to-all": 0, "collective-permute": 0}
     eff = sched.effective_k(shape, axis_sizes, opts.overlap_k)
     for (_, st), k_eff in zip(sched.comm_stages(), eff):
         impl = stage_transpose_impl(st, opts)
-        csize = math.prod(sizes[n] for n in _flat(st.comm_axis))
+        csize = math.prod(sizes[n] for n in flat_axes(st.comm_axis))
         if impl == "alltoall":
             counts["all-to-all"] += k_eff
         else:
@@ -473,7 +473,7 @@ def _stage_rows(shape, cand, sched, axis_sizes, dtype, batch,
     _, beta = collective_constants()
     eff_ks = iter(sched.effective_k(shape, axis_sizes, opts.overlap_k))
 
-    from repro_torch.core.schedule import (_flat, stage_category,
+    from repro_torch.core.schedule import (flat_axes, stage_category,
                                            stage_transpose_impl)
     n_local = sum(1 for st in sched.stages
                   if st.fft_axis is not None or st.prologue or st.epilogue)
@@ -506,7 +506,8 @@ def _stage_rows(shape, cand, sched, axis_sizes, dtype, batch,
             if impl == "ring":
                 compute_s += 2 * ev_bytes / HBM_BW
             elif impl == "pairwise":
-                csize = math.prod(axis_sizes[n] for n in _flat(st.comm_axis))
+                csize = math.prod(axis_sizes[n]
+                                  for n in flat_axes(st.comm_axis))
                 compute_s += (csize - 1) * ev_bytes / HBM_BW
 
         hidden = 0.9 * min(compute_s, collective_s) if overlaps else 0.0

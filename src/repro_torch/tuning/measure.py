@@ -56,7 +56,9 @@ def _random_input(plan, batch: int) -> torch.Tensor:
     return torch.randn(shape, dtype=dtype, device=plan.device, generator=gen)
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for off
+    the card)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -65,12 +67,12 @@ def _median_wall(step, device: torch.device, warmup: int,
                  iters: int) -> float:
     for _ in range(warmup):
         step()
-    _sync(device)
+    sync(device)
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
         step()
-        _sync(device)
+        sync(device)
         times.append(time.perf_counter() - t0)
     times.sort()
     return times[len(times) // 2]
@@ -134,7 +136,7 @@ def _code(exc: Optional[BaseException]) -> int:
     return _OTHER
 
 
-def _agree(mesh, code: int, t: float) -> tuple[int, float]:
+def agree(mesh, code: int, t: float) -> tuple[int, float]:
     """(worst failure code of any rank, slowest rank's time): one MAX
     all-reduce over the mesh's world group; a meshless or one-rank run
     passes through."""
@@ -154,7 +156,7 @@ def _settle(mesh, exc: Optional[BaseException], t: float, label: str
     :class:`KernelError` or ``RuntimeError`` naming the candidate on the
     others."""
     from repro_torch.kernels import KernelError
-    code, t = _agree(mesh, _code(exc), t)
+    code, t = agree(mesh, _code(exc), t)
     if code in (_KERNEL, _OTHER):
         if exc is not None and _code(exc) != _DROPPED:
             raise exc

@@ -1,5 +1,6 @@
 """The port's plans and local FFTs (``repro_torch.core.plan``/``local_fft``)
-against the JAX reference on the same numpy inputs."""
+against the JAX reference on the same numpy inputs, and the single-device
+3-D transform, a schedule run by the executor, against them."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,7 +9,8 @@ import torch
 
 from repro.core import local_fft as ref_local
 from repro.core import plan as ref_plan
-from repro_torch.core import local_fft, plan
+from repro_torch.core import Croft3D, FFTOptions, fft3d_local, local_fft, plan
+from repro_torch.core import schedule as schedule_lib
 
 IMPLS = ("matmul", "stockham", "xla", "pallas")
 KERNEL_TOL = 3e-4   # tests/test_kernels_fft.py:18
@@ -171,17 +173,38 @@ def test_fft_1d_matches_reference(impl, sign, plan_cache):
 @pytest.mark.parametrize("plan_cache", [True, False])
 def test_fft3d_local_matches_reference(impl, sign, norm, plan_cache):
     x = _field((16, 8, 8), seed=2)
-    ours = local_fft.fft3d_local(torch.from_numpy(x), sign, impl=impl,
-                                 plan_cache=plan_cache, norm=norm).numpy()
+    ours = fft3d_local(torch.from_numpy(x), sign, impl=impl,
+                       plan_cache=plan_cache, norm=norm).numpy()
     ref = np.asarray(ref_local.fft3d_local(jnp.asarray(x), sign, impl=impl,
                                            plan_cache=plan_cache, norm=norm))
     np.testing.assert_allclose(ours, ref, atol=FFT3_TOL * np.abs(ref).max())
 
 
 def test_apply_norm_rejects_unknown():
+    """The one normalization rule takes the reference's names and no
+    other."""
+    for norm in (None, "backward", "ortho", "none"):
+        schedule_lib.norm_factor((2, 2, 2), -1, norm)
     with pytest.raises(ValueError, match="unknown norm"):
-        local_fft.apply_norm(torch.zeros(2, 2, 2, dtype=torch.complex64),
-                             -1, "forward")
+        schedule_lib.norm_factor((2, 2, 2), -1, "forward")
+
+
+@pytest.mark.parametrize("impl", ["matmul", "stockham", "xla"])
+def test_meshless_plan_is_the_per_axis_composition(impl):
+    """A meshless ``Croft3D`` runs three 1-D FFTs, x then y then z, and
+    the inverse's 1/N: bitwise what those calls give alone."""
+    x = torch.from_numpy(_field((16, 8, 4), seed=3))
+    p = Croft3D(tuple(x.shape), device="cpu",
+                opts=FFTOptions(local_impl=impl))
+
+    def composed(v, sign):
+        for axis in (0, 1, 2):
+            v = local_fft.fft_1d(v, axis, sign, impl=impl)
+        return schedule_lib.normalize(
+            v, schedule_lib.norm_factor(v.shape, sign, None))
+    y = p.forward(x)
+    assert torch.equal(y, composed(x, -1))
+    assert torch.equal(p.inverse(y), composed(y, +1))
 
 
 def test_entry_points_need_a_device_choice():

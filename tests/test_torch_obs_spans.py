@@ -140,16 +140,20 @@ def test_profiled_ranges_nest(case, tmp_path):
 
 @pytest.mark.parametrize("solves", [1, 2, 3])
 def test_profiled_counts_equal_the_calls(solves, tmp_path):
-    solve = r2c_poisson()
+    """Each Poisson solve and each meshless c2c round trip opens 3
+    ``stage:fft`` spans a direction and one ``inverse:normalize``."""
+    solve, roundtrip = r2c_poisson(), c2c_roundtrip()
 
     def run():
         for _ in range(solves):
             solve()
+            roundtrip()
     _, record = profiled_trace(run, tmp_path)
     assert record["poisson:multiplier"]["count"] == solves
     assert record["poisson:solve"]["count"] == solves
-    assert record["stage:fft"]["count"] == 6 * solves
-    assert record["inverse:normalize"]["count"] == solves
+    assert record["croft3d:forward"]["count"] == solves
+    assert record["stage:fft"]["count"] == 12 * solves
+    assert record["inverse:normalize"]["count"] == 2 * solves
     assert all(r["host_s"] > 0 and r["device_s"] is None
                for r in record.values())
 

@@ -3,6 +3,7 @@
 against the JAX reference: the same ``describe()`` strings, counts and
 tokens, and the same validation errors."""
 
+import itertools
 import math
 
 import pytest
@@ -14,6 +15,7 @@ from repro.core import schedule as ref_schedule
 from repro.core.decomposition import pencil_grid_for as ref_pencil_grid_for
 from repro.core.distributed import build_schedule as ref_build
 from repro_torch.core import Croft3D, Decomposition, FFTOptions
+from repro_torch.core import distributed
 from repro_torch.core import schedule as schedule_lib
 from repro_torch.core.decomposition import pencil_grid_for, spec_slices
 from repro_torch.core.distributed import build_schedule
@@ -337,3 +339,99 @@ def test_pairwise_stage_stays_serial(monkeypatch, k):
     assert log == ["pre", "post", "wait"] * k
     assert grown == 0
     assert torch.equal(out, _logged_stage(monkeypatch, "ring", 1)[0])
+
+
+# --- a plan holds its schedules ---------------------------------------------
+
+SHARDING_CASES = [(kind, layout) for kind in AXES
+                  for layout in ("natural", "spectral")
+                  if not (kind == "cell" and layout == "spectral")]
+
+
+@pytest.mark.parametrize("kind,layout", SHARDING_CASES)
+def test_c2c_shardings_are_the_decompositions_slices(kind, layout):
+    """A c2c plan's shardings, read from the layouts of the schedules it
+    holds, are the ranges ``Decomposition.slices`` gives, on every
+    rank."""
+    dec, _ = _decomps(kind)
+    shape = (32, 16, 64)
+    mesh = _FakeMesh({a: SIZES[a] for a in schedule_lib.flat_axes(
+        AXES[kind])})
+    plan = Croft3D(shape, mesh, dec, FFTOptions(output_layout=layout))
+    for coords in itertools.product(*map(range, mesh.shape.values())):
+        mesh.coords = dict(zip(mesh.shape, coords))
+        assert plan.input_sharding == dec.slices(shape, mesh, mesh.coords)
+        assert plan.output_sharding == dec.slices(shape, mesh, mesh.coords,
+                                                  layout)
+
+
+class _MirrorMesh(_FakeMesh):
+    """A fake mesh whose every peer holds this rank's block: an
+    all-to-all lands the rank's own piece from each of them."""
+
+    device = torch.device("cpu")
+
+    def all_to_all(self, x, axis, split_axis, concat_axis):
+        p = self.shape[axis]
+        mine = x.chunk(p, split_axis)[0]
+        return Pending.done(torch.cat([mine] * p, concat_axis))
+
+
+@pytest.mark.parametrize("kind,layout", [(None, "natural"),
+                                         ("pencil", "natural"),
+                                         ("pencil", "spectral"),
+                                         ("slab", "natural"),
+                                         ("slab", "spectral")])
+def test_plan_runs_the_schedules_it_built(monkeypatch, kind, layout):
+    """After construction a plan's transforms build no schedule and
+    validate nothing: forward, filtered forward and inverse run the two
+    schedules the plan holds."""
+    shape = (16, 16, 8)
+    if kind is None:
+        plan = Croft3D(shape, device="cpu")
+    else:
+        dec, _ = _decomps(kind)
+        plan = Croft3D(shape, _MirrorMesh({a: SIZES[a] for a in AXES[kind]}),
+                       dec, FFTOptions(output_layout=layout))
+    calls, ran = [], []
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapper
+    monkeypatch.setattr(schedule_lib, "build_c2c",
+                        counted("build_c2c", schedule_lib.build_c2c))
+    monkeypatch.setattr(schedule_lib, "build_local_c2c", counted(
+        "build_local_c2c", schedule_lib.build_local_c2c))
+    monkeypatch.setattr(Decomposition, "validate",
+                        counted("validate", Decomposition.validate))
+    run_schedule = schedule_lib.run_schedule
+    monkeypatch.setattr(schedule_lib, "run_schedule",
+                        lambda blk, sched, *a, **kw: ran.append(sched.sign)
+                        or run_schedule(blk, sched, *a, **kw))
+    shard = plan.input_sharding or tuple(slice(0, n) for n in shape)
+    x = torch.randn(*(s.stop - s.start for s in shard),
+                    dtype=torch.complex64)
+    y = plan.forward(x)
+    plan.forward_filtered(x, torch.ones_like(y))
+    plan.inverse(y)
+    assert calls == [] and ran == [-1, -1, +1]
+    want = "local/c2c" if kind is None else f"{kind}/c2c/{layout}"
+    assert plan._sched_fwd.name == want
+
+
+@pytest.mark.parametrize("kind", [None, "pencil"])
+def test_scheduled_call_rejects_unknown_norm(kind):
+    """A misspelt norm raises on a mesh too, where it once meant no
+    scaling at all."""
+    x = torch.zeros(4, 4, 4, dtype=torch.complex64)
+    if kind is None:
+        call = lambda: distributed.scheduled_fft3d(
+            x, None, schedule_lib.build_local_c2c(+1), norm="forward")
+    else:
+        dec, _ = _decomps(kind)
+        mesh = _MirrorMesh({a: 2 for a in AXES[kind]})
+        call = lambda: distributed.ifft3d(x, mesh, dec, norm="forward")
+    with pytest.raises(ValueError, match="unknown norm 'forward'"):
+        call()

@@ -402,13 +402,7 @@ class _OpCount(TorchDispatchMode):
 
 
 def _local_schedule():
-    S = schedule_lib.Stage
-    return schedule_lib.Schedule(
-        "local/c2c", -1, schedule_lib.Layout(tuple(
-            schedule_lib.LayoutAxis(d) for d in "xyz")),
-        (S("x-fft", fft_axis=0, impl_stage=0),
-         S("y-fft", fft_axis=1, impl_stage=1),
-         S("z-fft", fft_axis=2, impl_stage=2)))
+    return schedule_lib.build_local_c2c(-1)
 
 
 def test_exec_output_hook_costs_nothing_unarmed():
