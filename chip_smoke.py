@@ -10,7 +10,11 @@ into ``build/``, then runs:
    card (``fft4step`` at N in {16, 64, 256, 1024, 4096} x sign +-1 within
    3e-4 * max|ref|, then ``fft4step_axis`` on axes -1, -2 and -3 of the
    1024^3 volume, each timed beside ``torch.fft.fft(x, dim=axis)`` and its
-   bytes bound; ``rotate_blocks`` at the five ring shapes of phase 3,
+   bytes bound; (1d) ``dft_rows``, the default plan's contiguous axis,
+   at (2^20, 1024) with sign +-1 and on a K-chunk's rows 2048 apart,
+   within 1e-5 * max|ref| of its plain version and of ``torch.fft.fft``,
+   then a ``Croft3D`` 1024^3 round trip with ``FFTOptions()`` launching
+   it twice; ``rotate_blocks`` at the five ring shapes of phase 3,
    every pack and unpack bitwise, the rotation and the pack timed beside
    ``torch.roll``; then at croft-1024's 2 GiB rank blocks, every pack and
    unpack of the pencil 2x2 and slab 4 ring stages, bitwise and timed
@@ -306,7 +310,8 @@ into ``build/``, then runs:
 16. one JSON line on the kernels, the card's name and power limit, and
    the result line.
 
-Launch counts are set to 0 just before each main-path phase (2, 2b, 3,
+Launch counts are set to 0 just before each main-path phase (1d's round
+trip, 2, 2b, 3,
 3b, 3g, 3c, 4, 5, each race and ``measure_candidate`` of 6b, 6c, 7a,
 7b, 8, 9a's timed forward and 9c, each prefill and decode run of 10a,
 10b, 11b-11e, 12a and 12b, 10c's dispatch, each step of 13a and 13b,
@@ -357,6 +362,7 @@ FFT3_TOL = 5e-4        # tests/test_kernels_fft.py:78
 RT_TOL = 1e-4          # tests/test_distributed_fft.py:28
 HERM_TOL = 1e-6        # tests/test_real_fft.py:149
 SCALE_TOL = 1e-5       # tests/test_kernels_fft.py:68
+DFT_TOL = 1e-5         # tests/test_torch_cuda_kernels.py: DFT_TOL
 RFFT_TOL = 5e-5        # tests/test_real_fft.py:160
 GRAD_TOL = 1e-4        # tests/test_grad.py:110 (relative to max|ref|)
 PARSEVAL_TOL = 1e-3    # tests/test_schedule.py:648
@@ -545,6 +551,83 @@ def phase_kernels(dev) -> dict:
     return out
 
 
+def phase_dft_rows(dev) -> tuple[dict, dict]:
+    """``dft_rows``, the default plan's contiguous axis in one pass, at the
+    main path's shape (2^20 rows of 1024 points, the 32 x 32 split) with
+    both signs, and on a K-chunk's rows 2048 apart: each held within
+    DFT_TOL * max|ref| of its plain version (cuBLAS's three steps, TF32
+    off: a TF32 product misses it by two orders) and of ``torch.fft.fft``,
+    then timed beside both and its bounds.  Then a ``Croft3D(shape)``
+    round trip under ``FFTOptions()`` at 1024^3, which launches it once a
+    transform.  Returns ({"dft_rows": row}, the round trip's launches)."""
+    import torch
+    from repro_torch.core import Croft3D, FFTOptions
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.device import full_fp32_matmul
+    from repro_torch.kernels import dft_rows, launch_counts, \
+        reset_launch_counts
+    full_fp32_matmul(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows = 1 << 20
+    x = torch.randn(rows, FULL, dtype=torch.complex64, device=dev,
+                    generator=gen)
+    worst = 0.0
+    tables = {}
+    for sign in (-1, 1):
+        p = plan_lib.make_plan(FULL, sign)
+        w1, w2, _ = p.constants_torch(dev)
+        tables[sign] = (w1, w2, p.twiddles_t_torch(dev))
+        chunk = x.view(rows // 2, 2 * FULL)[:, :FULL]
+        for what, v in (("rows", x), ("k_chunk", chunk)):
+            if what == "k_chunk" and sign == 1:
+                continue
+            got = dft_rows.dft_rows(v, *tables[sign])
+            for ref_name, ref in (
+                    ("plain", lambda: dft_rows.dft_rows_plain(v, *tables[sign])),
+                    ("torch.fft", lambda: torch.fft.fft(v) if sign == -1
+                     else torch.fft.ifft(v) * FULL)):
+                want = ref()
+                err = max_abs_diff(got, want, 1 << 14)
+                tol = DFT_TOL * max_abs(want, 1 << 14)
+                del want
+                print(f"[1d] dft_rows {what} {tuple(v.shape)} stride "
+                      f"{v.stride(0)} sign={sign:+d} vs {ref_name}: "
+                      f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
+                check(err <= tol, f"dft_rows {what} sign={sign} vs {ref_name}")
+                worst = max(worst, err)
+            del got
+            torch.cuda.empty_cache()
+    n1, n2 = tables[-1][0].shape[0], tables[-1][1].shape[0]
+    nbytes = 2 * x.numel() * 8 + (n1 * n1 + n2 * n2 + FULL) * 8
+    # the table's rule (5 N log2 N a row) and the dense products' own
+    b_ms, b_by = bound_ms(nbytes, 5.0 * FULL * math.log2(FULL) * rows)
+    d_ms, d_by = bound_ms(nbytes, 8.0 * (n1 + n2) * x.numel())
+    row = dict(
+        ms=time_ms(lambda: dft_rows.dft_rows(x, *tables[-1])),
+        plain_ms=time_ms(lambda: dft_rows.dft_rows_plain(x, *tables[-1])),
+        library_ms=time_ms(lambda: torch.fft.fft(x)),
+        bound_ms=b_ms, bound_by=b_by, dense_bound_ms=d_ms, dense_bound_by=d_by,
+        max_abs_err=worst, shape=[rows, FULL], split=[n1, n2])
+    print(f"[1d] dft_rows at ({rows}, {FULL}): {row}", flush=True)
+    shape = (FULL,) * 3
+    field = x.view(*shape)
+    plan = Croft3D(shape, opts=FFTOptions())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    back = plan.inverse(plan.forward(field))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    rt = max_abs_diff(back, field) / max_abs(field)
+    del back, x, field, chunk
+    torch.cuda.empty_cache()
+    print(f"[1d] Croft3D {shape} FFTOptions() round trip: rel err {rt:.3e}, "
+          f"launches {counts}", flush=True)
+    check(counts.get("dft_rows") == 2,
+          f"dft_rows launches in the default plan's round trip: {counts}")
+    check(rt < RT_TOL, f"default plan round trip {rt}")
+    return {"dft_rows": row}, counts
+
+
 def phase_rotate_shapes(dev) -> dict:
     """``rotate_blocks`` at the ring shapes of phase 3 (one rank's 256^3/4
     block): every pack and unpack bitwise against the plain version, then
@@ -685,9 +768,13 @@ def phase_host_overhead(dev) -> dict:
     """Host microseconds per launch of every kernel wrapper, at small
     shapes (the card stays ahead, so only the host path is timed)."""
     import torch
-    from repro_torch.kernels import (fft_matmul, flash_attention, hermitian,
-                                     spectral_scale as ss, transpose_pack)
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.kernels import (dft_rows, fft_matmul, flash_attention,
+                                     hermitian, spectral_scale as ss,
+                                     transpose_pack)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    dft = plan_lib.make_plan(1024, -1)
+    tables = dft.constants_torch(dev)[:2] + (dft.twiddles_t_torch(dev),)
     c = lambda *s: torch.randn(*s, dtype=torch.complex64, device=dev,
                                generator=gen)
     x, h = c(64, 1024), c(64, 1024)
@@ -697,6 +784,7 @@ def phase_host_overhead(dev) -> dict:
     kv = torch.randn(1, 128, 2, 64, device=dev, generator=gen).bfloat16()
     calls = {
         "fft4step": lambda: fft_matmul.fft4step(x, -1),
+        "dft_rows": lambda: dft_rows.dft_rows(x, *tables),
         "rotate_blocks": lambda: transpose_pack.rotate_blocks(x, 1, 1, 2),
         "unpack_two_for_one": lambda: hermitian.unpack_two_for_one(packed, 1),
         "hermitian_extend": lambda: hermitian.hermitian_extend(half, 1, 1024),
@@ -5530,13 +5618,16 @@ def main() -> int:
     print(f"[0] build {time.time() - t0:.1f} s", flush=True)
 
     timings = phase_kernels(dev)
+    dft, default_counts = phase_dft_rows(dev)
+    timings.update(dft)
     timings.update(phase_rotate_shapes(dev))
     phase_rotate_rank_blocks(dev)
     timings.update(phase_real_kernels(dev))
     timings.update(phase_attention_kernel(dev))
     phase_host_overhead(dev)
     # each path's launches, by the phase function that drove it
-    paths = [("full", phase_full(dev)), ("real_full", phase_real_full(dev))]
+    paths = [("default_plan", default_counts), ("full", phase_full(dev)),
+             ("real_full", phase_real_full(dev))]
     paths += [(f"distributed.{i}", c)
               for i, c in enumerate(phase_distributed())]
     paths += [("cell", phase_cell()), ("serve", phase_serve(dev)),
@@ -5556,6 +5647,8 @@ def main() -> int:
     # name -> (source in csrc/, the TPU kernel's pallas_call it replaces)
     ported = {
         "fft4step": ("fft4step", "src/repro/kernels/fft_matmul.py:107"),
+        # no pallas_call: the reference leaves these products to XLA
+        "dft_rows": ("dft_rows", None),
         "rotate_blocks": ("rotate_blocks",
                           "src/repro/kernels/transpose_pack.py:84"),
         "unpack_two_for_one": ("hermitian",
@@ -5580,7 +5673,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by")
+               if k in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -28,11 +28,13 @@ import torch
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.device import full_fp32_matmul
+from repro_torch.kernels import dft_rows
 from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs.tracer import span
 
 DFT_PRODUCTS = "matmul_dft_products"
 LAYOUT_COPIES = "matmul_layout_copies"
+FUSED_AXES = "matmul_fused_axes"
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -43,23 +45,23 @@ def fft_xla(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     return torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * x.shape[-1]
 
 
-def _product(device):
-    """Open one DFT product of :func:`fft_matmul`: a ``matmul:dft`` span
-    around all of its GEMM calls, and one more on the
-    ``matmul_dft_products`` counter."""
+def _product(device, products: int = 1):
+    """Open ``products`` DFT products of :func:`fft_matmul`: a
+    ``matmul:dft`` span around all of their calls, and as many more on
+    the ``matmul_dft_products`` counter."""
     metrics_lib.get_registry().counter(
-        DFT_PRODUCTS, "DFT products issued by the matmul local FFT").inc()
+        DFT_PRODUCTS, "DFT products issued by the matmul local FFT").inc(
+            products)
     return span("matmul:dft", "fft", device)
 
 
-def _left(w: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
-    """``out[i] = w @ b[i]`` over the batch dim, one cuBLAS call: a GEMM
-    reads ``b`` and writes ``out`` where they lie (each matrix needs one
-    unit stride), ``w`` broadcast with batch stride 0."""
-    if b.shape[0] == 1:
-        torch.mm(w, b[0], out=out[0])
-    else:
-        torch.bmm(w.expand(b.shape[0], -1, -1), b, out=out)
+def _fused(device):
+    """Open the fused kernel's run of a contiguous axis
+    (``kernels/dft_rows``): its two products under one ``matmul:dft``
+    span, and one more on the ``matmul_fused_axes`` counter."""
+    metrics_lib.get_registry().counter(
+        FUSED_AXES, "contiguous axes run by the fused DFT kernel").inc()
+    return _product(device, 2)
 
 
 def _merged_stride(shape, strides) -> Optional[int]:
@@ -104,8 +106,10 @@ def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
     C > 1 (a strided axis): ``Y[:, j2] = H[j2] @ X[:, :, j2, :]`` with
     the twiddles folded into ``H`` (``FFTPlan.folded_torch``), then
     ``Z[a] = F2 @ Y[a]`` as ``(n2, n1*C)``: two passes.
-    C = 1 (the contiguous axis): ``Y[a] = F1 @ X[a]``, the twiddle in
-    place, ``Z[a] = F2 @ Y[a]^T`` (the transpose an operand flag): three.
+    C = 1 (the contiguous axis): ``Y[a] = F1 @ X[a]``, the twiddle,
+    ``Z[a] = F2 @ Y[a]^T``: ``kernels/dft_rows``, one pass where its
+    kernel takes the dtype and split (complex64, 128 to 4096 points),
+    else three (its plain version).
     Above ``max_radix**2`` the second stage is this function again on
     ``Y`` as ``(A, n2, n1*C)`` (six-step); on the contiguous axis the
     twiddle pass then writes ``Y`` transposed, ``(A, j2, k1)``, for it.
@@ -121,21 +125,24 @@ def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
                 # w1 is symmetric: rows of X times w1, one GEMM
                 torch.mm(v[:, :, 0], w1, out=out[:, :, 0])
             else:
-                _left(w1, v, out)
+                dft_rows.left(w1, v, out)
         return out
     n1, n2 = plan.n1, plan.n2
+    if c == 1 and plan.two_level:
+        tw_t = (plan.twiddles_t_torch(dev) if plan_cache
+                else tw.t().contiguous())
+        if dft_rows.takes(v.dtype, n1, n2):
+            with _fused(dev):
+                z = dft_rows.dft_rows(v[:, :, 0], w1, w2, tw_t)
+        else:
+            with _product(dev, 2):
+                z = dft_rows.dft_rows_plain(v[:, :, 0], w1, w2, tw_t)
+        return z.view(a, n, 1)
     x4 = v.unflatten(1, (n1, n2))                   # (a, j1, j2, c)
     if c == 1:
         y = v.new_empty((a, n1, n2))                # (a, k1, j2)
         with _product(dev):
-            _left(w1, x4[..., 0], y)
-        if plan.two_level:
-            with span("matmul:twiddle", "epilogue", dev):
-                y.mul_(tw.t())
-            out = v.new_empty((a, n2, n1))          # (a, k2, k1)
-            with _product(dev):
-                _left(w2, y.transpose(1, 2), out)
-            return out.view(a, n, 1)
+            dft_rows.left(w1, x4[..., 0], y)
         yt = v.new_empty((a, n2, n1))               # (a, j2, k1)
         with span("matmul:twiddle", "epilogue", dev):
             torch.mul(y.transpose(1, 2), tw, out=yt)
@@ -154,7 +161,7 @@ def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
         return _dft_axis(y, sign, plan_cache, max_radix).view(a, n, c)
     out = v.new_empty((a, n, c))                    # (a, k2, k1, c)
     with _product(dev):
-        _left(w2, y, out.view(a, n2, n1 * c))
+        dft_rows.left(w2, y, out.view(a, n2, n1 * c))
     return out
 
 
@@ -187,10 +194,13 @@ def fft_matmul(x: torch.Tensor, sign: int = -1, *, axis: int = -1,
     n <= max_radix           : single DFT product
     n <= max_radix**2        : (n1, n2) split: two products, the
                                contiguous axis a twiddle pass between
+                               (complex64: one pass of kernels/dft_rows)
     larger                   : six-step recursion on the n2 axis
 
-    Spans: ``matmul:dft`` a product, ``matmul:twiddle`` the twiddle
-    pass, ``matmul:relayout`` the input's copy where it has no
+    Spans: ``matmul:dft`` a product (both of a two-level contiguous
+    axis, its twiddle too; ``matmul_fused_axes`` counts those the fused
+    kernel runs), ``matmul:twiddle`` a six-step level's twiddle pass,
+    ``matmul:relayout`` the input's copy where it has no
     ``(A, N, C)`` view (``matmul_layout_copies``).  Differentiable
     through ``grad.vjp.Linear``.
     """

@@ -12,6 +12,9 @@ spectral_scale  fused k-space multiply, the spectral epilogue
 flash_attention fused causal/windowed GQA attention, the LM prefill:
                 bf16 on the tensor cores, float32 in FFMA
                 (``csrc/flash_attention.cu``)
+dft_rows        the matmul local FFT's contiguous axis in one pass: both
+                dense DFT products and the twiddle, float32 in FFMA
+                (``csrc/dft_rows.cu``)
 ops             complex-in/complex-out entry points
 ref             plain oracles for the tests
 _build          nvcc build, ctypes loading and launch counters

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (fft_matmul, flash_attention, hermitian,
-                                 launch_counts, spectral_scale,
+from repro_torch.kernels import (dft_rows, fft_matmul, flash_attention,
+                                 hermitian, launch_counts, spectral_scale,
                                  spectral_scale_op)
 from repro_torch.kernels import transpose_pack as tp
 
@@ -24,6 +24,11 @@ ATTN_TOL = 5e-5     # tests/test_kernels_fft.py:103 (float32, absolute)
 # of the value, so two ulps of the value are room to spare
 ATTN_BF16_REL = 2.0 ** -6
 TF_TOL = 2e-4       # tests/test_models_smoke.py:111-113
+# dft_rows against cuBLAS's products and torch.fft: float32 sums of the
+# same terms (at most 64 a product) in another order than cuBLAS's, each
+# output within a few float32 ulps of the largest; TF32 products (about
+# 4e-4 of it, the benchmark's control) would not pass
+DFT_TOL = 1e-5
 
 
 @pytest.fixture
@@ -161,6 +166,11 @@ def test_croft3d_default_plan_round_trip_in_full_fp32(cuda_device):
     back = plan.inverse(y)
     assert (back - x).abs().max().item() <= 3e-5 * x.abs().max().item()
     assert copies.value == before
+    # the 256-point contiguous axis of each transform ran the fused kernel
+    launches = launch_counts().get(dft_rows.NAME, 0)
+    plan.inverse(plan.forward(x))
+    torch.cuda.synchronize()
+    assert launch_counts()[dft_rows.NAME] == launches + 2
 
 
 def _launched(name, fn):
@@ -169,6 +179,91 @@ def _launched(name, fn):
     torch.cuda.synchronize()
     assert launch_counts()[name] == before + 1
     return out
+
+
+def _dft_tables(n, sign, device):
+    from repro_torch.core import plan as plan_lib
+    p = plan_lib.make_plan(n, sign)
+    w1, w2, _ = p.constants_torch(device)
+    return w1, w2, p.twiddles_t_torch(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("sign", [-1, +1])
+@pytest.mark.parametrize("rows,pad", [(1, 0), (333, 0), (257, 5)])
+def test_dft_rows_kernel_matches_plain_and_torch_fft(cuda_device, n, sign,
+                                                     rows, pad):
+    """Every split the kernel takes, both signs, one row, a ragged count
+    of rows and rows ``n + pad`` apart (a sliced view): against its plain
+    version (the cuBLAS products and twiddle pass, TF32 off) and against
+    ``torch.fft`` as the oracle."""
+    from repro_torch.device import full_fp32_matmul
+    full_fp32_matmul(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + rows)
+    x = torch.randn(rows, n + pad, dtype=torch.complex64,
+                    device=cuda_device, generator=gen)[:, :n]
+    tables = _dft_tables(n, sign, cuda_device)
+    got = _launched(dft_rows.NAME, lambda: dft_rows.dft_rows(x, *tables))
+    assert got.shape == (rows, n) and got.is_contiguous()
+    plain = dft_rows.dft_rows_plain(x, *tables)
+    oracle = torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * n
+    for want in (plain, oracle):
+        assert (got - want).abs().max().item() <= \
+            DFT_TOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dft_rows_wrapper_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(4, 1024, dtype=torch.complex64, device=cuda_device)
+    tables = _dft_tables(1024, -1, cuda_device)
+    with pytest.raises(TypeError, match="complex64"):
+        dft_rows.dft_rows(x.to(torch.complex128), *tables)
+    with pytest.raises(ValueError, match="one cuda device"):
+        dft_rows.dft_rows(x, *(t.cpu() for t in tables))
+    with pytest.raises(ValueError, match="unit stride"):
+        dft_rows.dft_rows(torch.zeros(4, 2048, dtype=torch.complex64,
+                                      device=cuda_device)[:, ::2], *tables)
+    with pytest.raises(ValueError, match="unit stride"):
+        dft_rows.dft_rows(x.as_strided((4, 1024), (512, 1)), *tables)
+    eight = torch.ones(8, 8, dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(ValueError, match="splits"):
+        dft_rows.dft_rows(x[:, :64], eight, eight, eight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_cache", [True, False])
+def test_matmul_fft_runs_the_fused_kernel_on_a_k_chunk(cuda_device,
+                                                       plan_cache):
+    """``fft_matmul`` on rows 2048 apart (a K-chunk's slice) launches the
+    kernel once, on the view, with the plan's cached tables or rebuilt
+    ones."""
+    from repro_torch.core import local_fft
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(96, 2048, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)[:, :1024]
+    got = _launched(dft_rows.NAME, lambda: local_fft.fft_matmul(
+        x, -1, plan_cache=plan_cache))
+    want = torch.fft.fft(x)
+    assert (got - want).abs().max().item() <= \
+        DFT_TOL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_croft3d_default_plan_runs_the_fused_kernel_at_1024(cuda_device):
+    """``Croft3D(shape)`` under ``FFTOptions()`` with a 1024-point
+    contiguous axis, the cell's split (32 x 32): one launch a transform,
+    the round trip within the default plan's 3e-5."""
+    from repro_torch.core import Croft3D, FFTOptions
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(64, 32, 1024, dtype=torch.complex64, device=cuda_device,
+                    generator=gen)
+    plan = Croft3D(x.shape, opts=FFTOptions())
+    y = _launched(dft_rows.NAME, lambda: plan.forward(x))
+    want = torch.fft.fftn(x)
+    assert (y - want).abs().max().item() <= 3e-5 * want.abs().max().item()
+    back = _launched(dft_rows.NAME, lambda: plan.inverse(y))
+    assert (back - x).abs().max().item() <= 3e-5 * x.abs().max().item()
 
 
 @pytest.mark.cuda

@@ -11,6 +11,8 @@ from repro.core import local_fft as ref_local
 from repro.core import plan as ref_plan
 from repro_torch.core import Croft3D, FFTOptions, fft3d_local, local_fft, plan
 from repro_torch.core import schedule as schedule_lib
+from repro_torch.kernels import dft_rows
+from repro_torch.obs import metrics
 
 IMPLS = ("matmul", "stockham", "xla", "pallas")
 KERNEL_TOL = 3e-4   # tests/test_kernels_fft.py:18
@@ -219,3 +221,74 @@ def test_entry_points_need_a_device_choice():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert fft3d(x, device="cpu").device.type == "cpu"
+
+
+# every two-level split the fused contiguous-axis kernel takes: 16 x 8
+# (128 points) to 64 x 64 (4096)
+TWO_LEVEL = [128, 256, 512, 1024, 2048, 4096]
+
+
+def _exact(x: np.ndarray, sign: int, axis: int = -1) -> np.ndarray:
+    x = x.astype(np.complex128)
+    if sign == -1:
+        return np.fft.fft(x, axis=axis)
+    return np.fft.ifft(x, axis=axis) * x.shape[axis]
+
+
+@pytest.mark.parametrize("n", TWO_LEVEL)
+@pytest.mark.parametrize("sign", [-1, +1])
+@pytest.mark.parametrize("rows,pad", [(1, 0), (7, 3)])
+def test_dft_rows_plain_matches_numpy(n, sign, rows, pad):
+    """``kernels/dft_rows`` on a CPU tensor (its plain version) against
+    numpy's FFT: one row, and an odd count of rows ``n + pad`` apart (a
+    sliced view, read where it lies), with the plan's tables."""
+    p = plan.make_plan(n, sign)
+    w1, w2, _ = p.constants_torch("cpu")
+    x = torch.from_numpy(_field((rows, n + pad), seed=n))[:, :n]
+    got = dft_rows.dft_rows(x, w1, w2, p.twiddles_t_torch("cpu"))
+    assert got.shape == (rows, n) and got.is_contiguous()
+    want = _exact(x.numpy(), sign)
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=KERNEL_TOL * np.abs(want).max())
+
+
+def _fused_axes() -> float:
+    found = metrics.get_registry().get(local_fft.FUSED_AXES)
+    return 0.0 if found is None else found.value
+
+
+@pytest.mark.parametrize("dtype,shape,axis,fused", [
+    (torch.complex64, (3, 1024), -1, True),
+    (torch.complex64, (2, 5, 128), -1, True),
+    (torch.complex64, (3, 4096), -1, True),
+    (torch.complex64, "k_chunk", -1, True),     # rows 2048 apart
+    (torch.complex128, (3, 1024), -1, False),   # cuBLAS zgemm
+    (torch.complex64, (3, 64), -1, False),      # one product
+    (torch.complex64, (2, 8192), -1, False),    # six-step
+    (torch.complex64, (1024, 3), 0, False),     # a strided axis, C = 3
+])
+def test_the_fused_kernel_takes_complex64_two_level_contiguous_axes(
+        monkeypatch, dtype, shape, axis, fused):
+    """``_dft_axis`` sends an axis to ``kernels/dft_rows`` by what it
+    sees: C = 1, complex64, a two-level split of 128 to 4096 points; the
+    three-step path keeps complex128, n <= 64, the six-step levels and
+    every strided axis.  Either way the transform is numpy's."""
+    if shape == "k_chunk":
+        x = torch.from_numpy(_field((3, 2048), seed=2))[:, :1024]
+    else:
+        x = torch.from_numpy(_field(shape, seed=1)).to(dtype)
+    seen = []
+    run = dft_rows.dft_rows
+
+    def spy(v, *tables):
+        seen.append(v.stride())
+        return run(v, *tables)
+    monkeypatch.setattr(dft_rows, "dft_rows", spy)
+    before = _fused_axes()
+    got = local_fft.fft_matmul(x, -1, axis=axis)
+    assert len(seen) == int(fused) == _fused_axes() - before
+    if shape == "k_chunk":
+        assert seen == [(2048, 1)]
+    want = _exact(x.numpy(), -1, axis)
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=KERNEL_TOL * np.abs(want).max())

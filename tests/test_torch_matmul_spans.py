@@ -1,10 +1,12 @@
 """The matmul local FFT's spans and counters (``core/local_fft.py:
-fft_matmul``): ``matmul:dft`` a DFT product, ``matmul:twiddle`` (the
-contiguous axis's twiddle pass), ``matmul:relayout`` (an input's copy
-where it has no ``(A, N, C)`` view), ``matmul_dft_products`` one a
-product issued and ``matmul_layout_copies`` one such copy; free when
-nothing records, ``repro_torch.*`` ranges under ``torch.profiler``, and
-no change to the answers when they record."""
+fft_matmul``): ``matmul:dft`` a DFT product (both products of a
+two-level contiguous axis, ``kernels/dft_rows``, and its twiddle),
+``matmul:twiddle`` (a six-step level's twiddle pass),
+``matmul:relayout`` (an input's copy where it has no ``(A, N, C)`` view),
+``matmul_dft_products`` one a product issued, ``matmul_fused_axes`` one
+a contiguous axis the kernel ran and ``matmul_layout_copies`` one such
+copy; free when nothing records, ``repro_torch.*`` ranges under
+``torch.profiler``, and no change to the answers when they record."""
 
 import pytest
 import torch
@@ -13,12 +15,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import obs
 from repro_torch.core import Croft3D, local_fft
+from repro_torch.kernels import dft_rows
 from repro_torch.obs import metrics
 from repro_torch.obs import tracer as tracer_lib
 from test_torch_obs_spans import nesting, profiled_trace
 
 # a strided two-product axis, a one-product axis and a contiguous
-# two-product axis (64 x 2), the one with a twiddle pass
+# two-product axis (16 x 8), which the fused kernel runs in one span
 SHAPE = (1024, 8, 128)
 SPANS = ("matmul:dft", "matmul:twiddle", "matmul:relayout")
 
@@ -35,6 +38,11 @@ def products() -> float:
 
 def layout_copies() -> float:
     found = metrics.get_registry().get(local_fft.LAYOUT_COPIES)
+    return 0.0 if found is None else found.value
+
+
+def fused_axes() -> float:
+    found = metrics.get_registry().get(local_fft.FUSED_AXES)
     return 0.0 if found is None else found.value
 
 
@@ -94,13 +102,16 @@ def test_off_spans_are_null_and_record_nothing(monkeypatch):
 def test_profiled_spans_nest_and_count(tmp_path):
     events, record = profiled_trace(roundtrip(), tmp_path)
     got = nesting(events)
-    ran = SPANS[:2]         # a contiguous field takes no layout copy
+    # a contiguous field takes no layout copy, and the fused kernel's
+    # contiguous axis no twiddle pass
+    ran = SPANS[:1]
     assert "matmul:relayout" not in record
+    assert "matmul:twiddle" not in record
     for name in ran:
         assert got[name] == {"stage:fft"}, name
     assert got["stage:fft"] == {"croft3d:forward", "croft3d:inverse"}
-    assert record["matmul:dft"]["count"] == 2 * (2 + 1 + 2)
-    assert record["matmul:twiddle"]["count"] == 2
+    # a span a product of the strided axes, one the fused axis
+    assert record["matmul:dft"]["count"] == 2 * (2 + 1 + 1)
     # timed on no card: host time only
     assert all(record[n]["host_s"] > 0 and record[n]["device_s"] is None
                for n in ran)
@@ -124,8 +135,8 @@ def test_a_tracer_takes_the_spans():
     with obs.tracing() as tr:
         run()
     names = [e["name"] for e in tr.events()]
-    assert names.count("matmul:dft") == 10
-    assert names.count("matmul:twiddle") == 2
+    assert names.count("matmul:dft") == 8
+    assert names.count("matmul:twiddle") == 0
     assert names.count("matmul:relayout") == 0
     assert tr.device_ms() == {}           # nothing ran on a card
 
@@ -165,15 +176,30 @@ class _Writes(TorchDispatchMode):
 CELL = (1024, 1024, 1024)   # the default-plan cell's field, on meta
 
 
-@pytest.mark.parametrize("axis,passes", [(-3, 2), (-2, 2), (-1, 3)])
-def test_an_axis_is_read_where_it_lies(axis, passes):
+def _fused_writes(monkeypatch, log: _Writes) -> None:
+    """Count the fused kernel's output as written in ``log``: on ``meta``
+    its wrapper only allocates the output, which ``_Writes`` does not
+    count, where on the card the kernel writes it once."""
+    run = dft_rows.dft_rows
+
+    def counted(x, *tables):
+        out = run(x, *tables)
+        log.ops.append("dft_rows")
+        log.written += out.numel()
+        return out
+    monkeypatch.setattr(dft_rows, "dft_rows", counted)
+
+
+@pytest.mark.parametrize("axis,passes", [(-3, 2), (-2, 2), (-1, 1)])
+def test_an_axis_is_read_where_it_lies(axis, passes, monkeypatch):
     """Along each axis of a contiguous field: no copy, the products'
-    outputs and the contiguous axis's in-place twiddle the only full
-    passes (2 a strided axis, 3 the contiguous one), 2 products, no
-    layout copy.  On ``meta``: the cell's own shape, no values."""
+    outputs the only full passes (2 a strided axis; 1 the contiguous
+    one, the fused kernel's output), 2 products, no layout copy.  On
+    ``meta``: the cell's own shape, no values."""
     x = torch.empty(CELL, dtype=torch.complex64, device="meta")
     before = products(), layout_copies()
     with _Writes() as log:
+        _fused_writes(monkeypatch, log)
         y = local_fft.fft_1d(x, axis, -1)
     assert y.shape == x.shape and y.is_contiguous()
     assert not {"clone", "copy_", "contiguous"} & set(log.ops), log.ops
@@ -182,12 +208,49 @@ def test_an_axis_is_read_where_it_lies(axis, passes):
     assert (products() - before[0], layout_copies() - before[1]) == (2, 0)
 
 
-def test_an_input_with_no_view_takes_one_counted_copy():
+def test_an_input_with_no_view_takes_one_counted_copy(monkeypatch):
     x = torch.empty(CELL, dtype=torch.complex64, device="meta")
     block = x[:, :512]          # a K-chunk: 1024 x 512 rows no longer merge
     before = products(), layout_copies()
     with _Writes() as log:
+        _fused_writes(monkeypatch, log)
         local_fft.fft_1d(block, -1, -1)
     assert log.ops.count("clone") == 1
-    assert round(log.written / block.numel(), 3) == 1 + 3
+    assert round(log.written / block.numel(), 3) == 1 + 1
     assert (products() - before[0], layout_copies() - before[1]) == (2, 1)
+
+
+@pytest.mark.parametrize("dtype, shape", [
+    (torch.complex64, (4, 1024)), (torch.complex64, (3, 2, 128)),
+    (torch.complex64, (1, 4096)),
+    (torch.complex128, (4, 1024)), (torch.complex128, (3, 2, 128))])
+def test_a_contiguous_axis_is_one_span_two_products_and_no_twiddle(
+        dtype, shape, tmp_path, monkeypatch):
+    """A two-level contiguous axis is one ``matmul:dft`` span, no
+    ``matmul:twiddle``, ``matmul_dft_products`` +2: complex64 runs the
+    fused kernel (``matmul_fused_axes`` +1), complex128, which the kernel
+    does not take, its plain version ``dft_rows_plain`` (+0)."""
+    x = field(shape).to(dtype)
+    fused = dtype == torch.complex64
+    calls = []
+    plain = dft_rows.dft_rows_plain
+    monkeypatch.setattr(dft_rows, "dft_rows_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    before = products(), fused_axes()
+    events, record = profiled_trace(lambda: local_fft.fft_matmul(x),
+                                    tmp_path)
+    assert record["matmul:dft"]["count"] == 1
+    assert "matmul:twiddle" not in record and "matmul:relayout" not in record
+    assert (products() - before[0], fused_axes() - before[1]) == \
+        (2, int(fused))
+    # on the CPU the kernel's wrapper runs the plain version too
+    assert calls == [1]
+    assert nesting(events)["matmul:dft"] == {None}
+
+
+def test_a_roundtrip_counts_its_fused_axes():
+    run = roundtrip()
+    before = fused_axes()
+    run()
+    # the 128-point contiguous axis of the forward and of the inverse
+    assert fused_axes() - before == 2
