@@ -35,6 +35,8 @@ from repro_torch.obs.tracer import span
 DFT_PRODUCTS = "matmul_dft_products"
 LAYOUT_COPIES = "matmul_layout_copies"
 FUSED_AXES = "matmul_fused_axes"
+PLAIN_AXES = "matmul_plain_axes"
+DONATED_OUTPUTS = "matmul_donated_outputs"
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -45,14 +47,14 @@ def fft_xla(x: torch.Tensor, sign: int = -1) -> torch.Tensor:
     return torch.fft.fft(x) if sign == -1 else torch.fft.ifft(x) * x.shape[-1]
 
 
-def _product(device, products: int = 1):
-    """Open ``products`` DFT products of :func:`fft_matmul`: a
-    ``matmul:dft`` span around all of their calls, and as many more on
-    the ``matmul_dft_products`` counter."""
+def _product(device, products: int = 1, name: str = "matmul:dft"):
+    """Open ``products`` DFT products of :func:`fft_matmul`: a span
+    ``name`` around all of their calls, and as many more on the
+    ``matmul_dft_products`` counter."""
     metrics_lib.get_registry().counter(
         DFT_PRODUCTS, "DFT products issued by the matmul local FFT").inc(
             products)
-    return span("matmul:dft", "fft", device)
+    return span(name, "fft", device)
 
 
 def _fused(device):
@@ -62,6 +64,32 @@ def _fused(device):
     metrics_lib.get_registry().counter(
         FUSED_AXES, "contiguous axes run by the fused DFT kernel").inc()
     return _product(device, 2)
+
+
+def _plain(device):
+    """Open the plain version's run of a contiguous axis the fused
+    kernel does not take (complex128): its two products and the twiddle
+    under one ``matmul:plain`` span, and one more on the
+    ``matmul_plain_axes`` counter."""
+    metrics_lib.get_registry().counter(
+        PLAIN_AXES, "contiguous axes run by the fused DFT kernel's plain "
+        "version").inc()
+    return _product(device, 2, "matmul:plain")
+
+
+def _donated() -> None:
+    metrics_lib.get_registry().counter(
+        DONATED_OUTPUTS, "axis outputs of the matmul local FFT written into "
+        "the axis's own dead input").inc()
+
+
+def _donatable(x: torch.Tensor) -> bool:
+    """Whether ``x`` may take its own axis output: contiguous, the whole
+    of the tensor it views (no K-chunk or other slice of a larger
+    block), and not followed by autograd."""
+    base = x if x._base is None else x._base
+    return (x.is_contiguous() and x.storage_offset() == 0
+            and base.numel() == x.numel() and not x.requires_grad)
 
 
 def _merged_stride(shape, strides) -> Optional[int]:
@@ -96,9 +124,14 @@ def _axis_view(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
-              max_radix: int) -> torch.Tensor:
+              max_radix: int, donate: bool = False) -> torch.Tensor:
     """The DFT along the middle dim of an ``(A, N, C)`` view, into a new
-    contiguous ``(A, N, C)`` tensor.  ``n = n2*j1 + j2`` in, ``k = k1 +
+    contiguous ``(A, N, C)`` tensor, or with ``donate`` (``v`` is a
+    contiguous block no one else reads) into ``v`` itself where the axis
+    runs two products outside the fused kernel: the second product of a
+    strided axis, and of the plain version's contiguous axis, writes
+    into ``v``, dead once the first product is queued
+    (``matmul_donated_outputs``).  ``n = n2*j1 + j2`` in, ``k = k1 +
     n1*k2`` out, so the input reads as ``(A, j1, j2, C)`` and the output
     is written as ``(A, k2, k1, C)``: every product a GEMM on the
     operands where they lie, no copy between them.
@@ -109,7 +142,7 @@ def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
     C = 1 (the contiguous axis): ``Y[a] = F1 @ X[a]``, the twiddle,
     ``Z[a] = F2 @ Y[a]^T``: ``kernels/dft_rows``, one pass where its
     kernel takes the dtype and split (complex64, 128 to 4096 points),
-    else three (its plain version).
+    else three (its plain version, ``matmul:plain``).
     Above ``max_radix**2`` the second stage is this function again on
     ``Y`` as ``(A, n2, n1*C)`` (six-step); on the contiguous axis the
     twiddle pass then writes ``Y`` transposed, ``(A, j2, k1)``, for it.
@@ -135,8 +168,11 @@ def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
             with _fused(dev):
                 z = dft_rows.dft_rows(v[:, :, 0], w1, w2, tw_t)
         else:
-            with _product(dev, 2):
-                z = dft_rows.dft_rows_plain(v[:, :, 0], w1, w2, tw_t)
+            with _plain(dev):
+                z = dft_rows.dft_rows_plain(v[:, :, 0], w1, w2, tw_t,
+                                            v[:, :, 0] if donate else None)
+            if donate:
+                _donated()
         return z.view(a, n, 1)
     x4 = v.unflatten(1, (n1, n2))                   # (a, j1, j2, c)
     if c == 1:
@@ -159,9 +195,11 @@ def _dft_axis(v: torch.Tensor, sign: int, plan_cache: bool,
     y = y.view(a, n2, n1 * c)
     if not plan.two_level:
         return _dft_axis(y, sign, plan_cache, max_radix).view(a, n, c)
-    out = v.new_empty((a, n, c))                    # (a, k2, k1, c)
+    out = v if donate else v.new_empty((a, n, c))   # (a, k2, k1, c)
     with _product(dev):
         dft_rows.left(w2, y, out.view(a, n2, n1 * c))
+    if donate:
+        _donated()
     return out
 
 
@@ -187,7 +225,8 @@ class _AxisDFT:
 
 def fft_matmul(x: torch.Tensor, sign: int = -1, *, axis: int = -1,
                plan_cache: bool = True,
-               max_radix: int = plan_lib.MAX_RADIX) -> torch.Tensor:
+               max_radix: int = plan_lib.MAX_RADIX,
+               donate: bool = False) -> torch.Tensor:
     """Four-step FFT along ``axis``, read where it lies (any power-of-two
     size; :func:`_dft_axis` says how).
 
@@ -199,23 +238,31 @@ def fft_matmul(x: torch.Tensor, sign: int = -1, *, axis: int = -1,
 
     Spans: ``matmul:dft`` a product (both of a two-level contiguous
     axis, its twiddle too; ``matmul_fused_axes`` counts those the fused
-    kernel runs), ``matmul:twiddle`` a six-step level's twiddle pass,
-    ``matmul:relayout`` the input's copy where it has no
-    ``(A, N, C)`` view (``matmul_layout_copies``).  Differentiable
-    through ``grad.vjp.Linear``.
+    kernel runs; ``matmul:plain`` instead where its plain version runs,
+    counted by ``matmul_plain_axes``), ``matmul:twiddle`` a six-step
+    level's twiddle pass, ``matmul:relayout`` the input's copy where it
+    has no ``(A, N, C)`` view (``matmul_layout_copies``).
+    Differentiable through ``grad.vjp.Linear``.
+
+    ``donate``: the caller made ``x`` and reads it no more, so the axis
+    output may take its storage (:func:`_dft_axis` says where); taken
+    only where ``x`` is a contiguous whole block that autograd does not
+    follow.
     """
     if torch.is_grad_enabled() and x.requires_grad:
         from repro_torch.grad import vjp
         return vjp.Linear.apply(x, _AxisDFT(sign, axis, plan_cache,
                                             max_radix))
-    return _fft_matmul(x, sign, axis, plan_cache, max_radix)
+    return _fft_matmul(x, sign, axis, plan_cache, max_radix,
+                       donate and _donatable(x))
 
 
-def _fft_matmul(x, sign, axis, plan_cache, max_radix):
+def _fft_matmul(x, sign, axis, plan_cache, max_radix, donate=False):
     full_fp32_matmul(x.device)
     axis = axis % x.ndim
     v = _axis_view(x, axis)
-    return _dft_axis(v, sign, plan_cache, max_radix).view(x.shape)
+    return _dft_axis(v, sign, plan_cache, max_radix,
+                     donate).view(x.shape)
 
 
 def fft_stockham(x: torch.Tensor, sign: int = -1, *,
@@ -255,14 +302,17 @@ def fft_stockham(x: torch.Tensor, sign: int = -1, *,
 
 
 def fft_1d(x: torch.Tensor, axis: int, sign: int = -1, *,
-           impl: str = "matmul", plan_cache: bool = True) -> torch.Tensor:
-    """1-D FFT along ``axis`` with the chosen implementation."""
+           impl: str = "matmul", plan_cache: bool = True,
+           donate: bool = False) -> torch.Tensor:
+    """1-D FFT along ``axis`` with the chosen implementation;
+    ``donate`` (``fft_matmul``'s) is taken by ``matmul`` alone."""
     if impl == "pallas":
         # the Hopper kernel reads the transform axis where it lies
         from repro_torch.kernels import fft_matmul as kernel
         return kernel.fft4step_axis(x, axis, sign)
     if impl == "matmul":
-        return fft_matmul(x, sign, axis=axis, plan_cache=plan_cache)
+        return fft_matmul(x, sign, axis=axis, plan_cache=plan_cache,
+                          donate=donate)
     if impl == "xla":
         fn = lambda v: fft_xla(v, sign)
     elif impl == "stockham":

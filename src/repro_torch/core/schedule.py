@@ -560,9 +560,9 @@ CHUNKS_OVERLAPPED = "stage_chunks_overlapped"
 
 
 def _fft_along(blk: torch.Tensor, axis: int, sign: int, opts,
-               stage: int = 0) -> torch.Tensor:
+               stage: int = 0, donate: bool = False) -> torch.Tensor:
     return local_fft.fft_1d(blk, axis, sign, impl=opts.stage_impl(stage),
-                            plan_cache=opts.plan_cache)
+                            plan_cache=opts.plan_cache, donate=donate)
 
 
 def _pack_pieces(blk: torch.Tensor, mesh, axis: AxisName,
@@ -668,16 +668,19 @@ def _all_to_all(blk: torch.Tensor, mesh, axis: AxisName, split_axis: int,
 
 
 def stage_pre(blk: torch.Tensor, st: Stage, sign: int, opts, off: int = 0,
-              ctx=None) -> torch.Tensor:
+              ctx=None, donate: bool = False) -> torch.Tensor:
     """The compute leg of one stage: prologue ops -> local FFT ->
-    epilogue ops, on one (chunk of a) local block."""
+    epilogue ops, on one (chunk of a) local block.  ``donate``: the
+    executor made ``blk`` and reads it no more, so the local FFT may
+    write its output into it (``local_fft.fft_matmul``); given to the
+    FFT where no prologue op ran before it."""
     ctx = ctx or {}
     for op in st.prologue:
         blk = op.apply(blk, opts, ctx, off)
     if st.fft_axis is not None:
         with span("stage:fft", "fft"):
             blk = _fft_along(blk, st.fft_axis + off, sign, opts,
-                             st.impl_stage)
+                             st.impl_stage, donate and not st.prologue)
     for op in st.epilogue:
         blk = op.apply(blk, opts, ctx, off)
     return blk
@@ -718,7 +721,8 @@ def ring_round(blk: torch.Tensor, st: Stage, opts, mesh, rnd: int,
 
 
 def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
-              off: int = 0, ctx=None, ring_round_cb=None) -> torch.Tensor:
+              off: int = 0, ctx=None, ring_round_cb=None,
+              donate: bool = False) -> torch.Tensor:
     """Execute one stage on a local block (axis indices offset by ``off``
     for leading batch dims).  Owns the K-chunked overlap and the silent
     fallback to one chunk when ``chunk_axis`` is not divisible by K.
@@ -737,6 +741,8 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
     each of its rounds inside its collective leg and overlaps nothing.
     Every chunk compute leg queued while an earlier chunk's collective is
     in flight adds one to the ``stage_chunks_overlapped`` counter.
+    ``donate`` (:func:`stage_pre`'s) is taken by a stage with no
+    collective alone: chunks and collectives keep their buffers.
     """
     ctx = ctx or {}
 
@@ -747,7 +753,8 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
         return stage_comm(c, st, opts, mesh, off, ring_round_cb=ring_round_cb)
 
     if st.comm_axis is None:
-        return pre(blk)  # nothing to overlap with: never chunked
+        # nothing to overlap with: never chunked
+        return stage_pre(blk, st, sign, opts, off, ctx, donate)
     k = stage_overlap_k(st, opts)
     ax = st.chunk_axis + off
     if k <= 1 or blk.shape[ax] % k:
@@ -767,6 +774,11 @@ def run_stage(blk: torch.Tensor, st: Stage, sign: int, opts, mesh,
         return torch.cat(parts, dim=ax)
 
 
+def _root(t: torch.Tensor) -> torch.Tensor:
+    """The tensor ``t`` views (``t`` itself when it views none)."""
+    return t if t._base is None else t._base
+
+
 def run_schedule(blk: torch.Tensor, sched: Schedule, opts, mesh,
                  operands=None, ring_round_cb=None) -> torch.Tensor:
     """Execute a schedule on this rank's local block.
@@ -776,12 +788,19 @@ def run_schedule(blk: torch.Tensor, sched: Schedule, opts, mesh,
     named blocks to ops that need them (the fused k-space filter).
     ``ring_round_cb(round, piece)`` is the observability hook threaded to
     every ring-impl transpose (see :func:`stage_comm`).
+
+    A block the executor made (any that views another tensor than the
+    caller's ``blk``) is donated to the stage that consumes it: its
+    local FFT may write into it (:func:`stage_pre`).  The caller's block
+    is never written.
     """
     off = blk.ndim - 3
     ctx = dict(operands or {})
+    caller = _root(blk)
     for st in sched.stages:
         blk = run_stage(blk, st, sched.sign, opts, mesh, off, ctx,
-                        ring_round_cb=ring_round_cb)
+                        ring_round_cb=ring_round_cb,
+                        donate=_root(blk) is not caller)
     for op in sched.epilogue:
         blk = op.apply(blk, opts, ctx, off)
     # Fault plane: output poisoning.  The port runs eagerly, so the

@@ -26,6 +26,7 @@ output.  It never falls back: a CUDA tensor it does not take raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -104,16 +105,20 @@ def left(w: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> None:
 
 
 def dft_rows_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                   tw_t: torch.Tensor) -> torch.Tensor:
+                   tw_t: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`dft_rows` in tensor ops: the three steps the kernel fuses,
     ``Y = F1 @ X``, ``Y *= T``, ``out = F2 @ Y^T``, three passes.  The
     matmul local FFT runs them so where the kernel does not take the
-    dtype or split (complex128: cuBLAS ``zgemm``)."""
+    dtype or split (complex128: cuBLAS ``zgemm``).  ``out``, a contiguous
+    (A, n1·n2) tensor, takes the result where given: ``x`` itself may,
+    as nothing reads ``x`` after the first product."""
     n1, n2 = w1.shape[0], w2.shape[0]
     a = x.shape[0]
     y = x.new_empty((a, n1, n2))                    # (a, k1, j2)
     left(w1, x.unflatten(1, (n1, n2)), y)
     y.mul_(tw_t)
-    out = x.new_empty((a, n2, n1))                  # (a, k2, k1)
-    left(w2, y.transpose(1, 2), out)
-    return out.view(a, n1 * n2)
+    if out is None:
+        out = x.new_empty((a, n1 * n2))
+    left(w2, y.transpose(1, 2), out.view(a, n2, n1))   # (a, k2, k1)
+    return out

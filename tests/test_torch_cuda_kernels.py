@@ -267,6 +267,40 @@ def test_croft3d_default_plan_runs_the_fused_kernel_at_1024(cuda_device):
 
 
 @pytest.mark.cuda
+def test_croft3d_default_plan_in_double_donates_its_axis_outputs(cuda_device):
+    """``Croft3D(shape, dtype=torch.complex128)`` under ``FFTOptions()``
+    at 256^3: cuBLAS FP64 products against ``torch.fft.fftn`` within
+    float64 rounding, the caller's field unchanged, and a round trip
+    that holds at most 3 blocks beside the field, as the y and z axes
+    write their outputs into the executor's dead input blocks (4 without
+    that)."""
+    from repro_torch.core import Croft3D, FFTOptions, local_fft
+    from repro_torch.obs import metrics
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((256,) * 3, dtype=torch.complex128, device=cuda_device,
+                    generator=gen)
+    keep = x.clone()
+    plan = Croft3D(x.shape, dtype=torch.complex128, opts=FFTOptions())
+    want = torch.fft.fftn(x)
+    y = plan.forward(x)
+    assert (y - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+    back = plan.inverse(y)
+    assert (back - x).abs().max().item() <= 1e-12 * x.abs().max().item()
+    assert torch.equal(x, keep)
+    del y, back, want, keep
+    donated = metrics.get_registry().counter(local_fft.DONATED_OUTPUTS)
+    before = donated.value
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plan.inverse(plan.forward(x))
+    torch.cuda.synchronize()
+    block = x.numel() * x.element_size()
+    assert torch.cuda.max_memory_allocated() - base <= 3.05 * block
+    assert donated.value == before + 4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,pair_axis", [((8, 4, 16), 1), ((3, 6, 64), 0),
                                              ((2, 4, 3, 256), 1),
                                              ((5, 2, 1030), 1)])

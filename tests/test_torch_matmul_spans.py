@@ -1,7 +1,9 @@
 """The matmul local FFT's spans and counters (``core/local_fft.py:
 fft_matmul``): ``matmul:dft`` a DFT product (both products of a
-two-level contiguous axis, ``kernels/dft_rows``, and its twiddle),
-``matmul:twiddle`` (a six-step level's twiddle pass),
+two-level contiguous axis, ``kernels/dft_rows``, and its twiddle;
+``matmul:plain`` where the kernel's plain version runs them, counted by
+``matmul_plain_axes``), ``matmul:twiddle`` (a six-step level's twiddle
+pass),
 ``matmul:relayout`` (an input's copy where it has no ``(A, N, C)`` view),
 ``matmul_dft_products`` one a product issued, ``matmul_fused_axes`` one
 a contiguous axis the kernel ran and ``matmul_layout_copies`` one such
@@ -43,6 +45,11 @@ def layout_copies() -> float:
 
 def fused_axes() -> float:
     found = metrics.get_registry().get(local_fft.FUSED_AXES)
+    return 0.0 if found is None else found.value
+
+
+def plain_axes() -> float:
+    found = metrics.get_registry().get(local_fft.PLAIN_AXES)
     return 0.0 if found is None else found.value
 
 
@@ -226,26 +233,29 @@ def test_an_input_with_no_view_takes_one_counted_copy(monkeypatch):
     (torch.complex128, (4, 1024)), (torch.complex128, (3, 2, 128))])
 def test_a_contiguous_axis_is_one_span_two_products_and_no_twiddle(
         dtype, shape, tmp_path, monkeypatch):
-    """A two-level contiguous axis is one ``matmul:dft`` span, no
-    ``matmul:twiddle``, ``matmul_dft_products`` +2: complex64 runs the
-    fused kernel (``matmul_fused_axes`` +1), complex128, which the kernel
-    does not take, its plain version ``dft_rows_plain`` (+0)."""
+    """A two-level contiguous axis is one span, no ``matmul:twiddle``,
+    ``matmul_dft_products`` +2: complex64 runs the fused kernel under
+    ``matmul:dft`` (``matmul_fused_axes`` +1), complex128, which the
+    kernel does not take, its plain version ``dft_rows_plain`` under
+    ``matmul:plain`` (``matmul_plain_axes`` +1)."""
     x = field(shape).to(dtype)
     fused = dtype == torch.complex64
+    name, other = (("matmul:dft", "matmul:plain") if fused
+                   else ("matmul:plain", "matmul:dft"))
     calls = []
     plain = dft_rows.dft_rows_plain
     monkeypatch.setattr(dft_rows, "dft_rows_plain",
                         lambda *a: calls.append(1) or plain(*a))
-    before = products(), fused_axes()
+    before = products(), fused_axes(), plain_axes()
     events, record = profiled_trace(lambda: local_fft.fft_matmul(x),
                                     tmp_path)
-    assert record["matmul:dft"]["count"] == 1
+    assert record[name]["count"] == 1 and other not in record
     assert "matmul:twiddle" not in record and "matmul:relayout" not in record
-    assert (products() - before[0], fused_axes() - before[1]) == \
-        (2, int(fused))
+    assert (products() - before[0], fused_axes() - before[1],
+            plain_axes() - before[2]) == (2, int(fused), int(not fused))
     # on the CPU the kernel's wrapper runs the plain version too
     assert calls == [1]
-    assert nesting(events)["matmul:dft"] == {None}
+    assert nesting(events)[name] == {None}
 
 
 def test_a_roundtrip_counts_its_fused_axes():
