@@ -21,7 +21,8 @@ into ``build/``, then runs:
    beside ``torch.roll``; the Hermitian unpack/extend at the 1024^3
    packed spectrum and n in {16, 64, 256} within 1e-6 * max|ref|; the
    spectral scale, full-shape at the 1024^3 r2c spectrum and broadcast
-   at (2^20, 1024) with alpha in {1, 0.25}, bitwise), each timed with
+   at (2^20, 1024) with alpha in {1, 0.25}, bitwise; the Poisson multiply
+   at that spectrum, bitwise), each timed with
    CUDA events beside its plain version, one library call computing the
    same function where there is one, and its bound.  A kernel whose
    bound is under 1 ms is timed by one event pair around a run of
@@ -56,7 +57,7 @@ into ``build/``, then runs:
    real field (1024^3 float32) through the packed r2c ``Croft3D``,
    forward (against ``torch.fft.rfftn``, 5e-5 * max|ref|) and inverse
    (round trip < 1e-4), ``poisson_solve`` (against
-   ``irfftn(rfftn(f) / -k^2)``) and a z-derivative of its solution
+   ``irfftn(rfftn(f) / -k^2)``; ``spectral_scale_poisson``) and a z-derivative of its solution
    through ``spectral_scale_op``; a profiled r2c forward (busy time,
    copy launches); then a c2c ``forward_filtered`` at 512^3;
 3. the distributed executor: 4 ranks on the one card, joined by a gloo
@@ -979,7 +980,34 @@ def phase_real_kernels(dev) -> dict:
     out[ss.FULL]["offset_ms"] = time_ms(
         lambda: ss.spectral_scale_planes_full(xo, ho))
     print(f"[1] {ss.FULL} at {shape}: {out[ss.FULL]}", flush=True)
-    del x, h, x2, h2, xo, ho
+    del h, x2, h2, xo, ho
+    torch.cuda.empty_cache()
+
+    # the Poisson multiply at the same shape: -1/k^2 (box 2 pi) computed in
+    # the pass from the three wavenumber vectors, x read once, y written once
+    k = torch.fft.fftfreq(FULL, d=1.0 / FULL, device=dev)
+    kz = torch.fft.rfftfreq(FULL, d=1.0 / FULL, device=dev)
+    y = ss.poisson_scale(x, k, k, kz)
+    want = ss.poisson_scale_plain(x, k, k, kz)
+    err, top = _err_and_scale(y, want)
+    print(f"[1] {ss.POISSON} {shape}: bitwise {torch.equal(y, want)}",
+          flush=True)
+    check(torch.equal(y, want), f"{ss.POISSON} is not bitwise plain")
+    del y
+    xo = offset_copy(x)
+    check(torch.equal(ss.poisson_scale(xo, k, k, kz, 0.25),
+                      ss.poisson_scale_plain(x, k, k, kz, 0.25)),
+          f"{ss.POISSON} on an offset base is not bitwise plain")
+    del want
+    b_ms, b_by = bound_ms(2 * x.numel() * 8, 16.0 * x.numel())
+    out[ss.POISSON] = dict(
+        ms=time_ms(lambda: ss.poisson_scale(x, k, k, kz)),
+        plain_ms=time_ms(lambda: ss.poisson_scale_plain(x, k, k, kz)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=list(shape),
+        max_abs_err=err,
+        offset_ms=time_ms(lambda: ss.poisson_scale(xo, k, k, kz, 0.25)))
+    print(f"[1] {ss.POISSON} at {shape}: {out[ss.POISSON]}", flush=True)
+    del x, xo
     torch.cuda.empty_cache()
 
     # the broadcast spectral scale through spectral_scale_op, (2^20, 1024)
@@ -1299,7 +1327,7 @@ def phase_real_full(dev) -> dict:
     check(p_err < RFFT_TOL, f"1024^3 poisson_solve rel err {p_err}")
     check(dz_err < RFFT_TOL, f"1024^3 d/dz rel err {dz_err}")
     for name in ("fft4step", "unpack_two_for_one", "hermitian_extend",
-                 "spectral_scale", "spectral_scale_full"):
+                 "spectral_scale", "spectral_scale_poisson"):
         check(counts.get(name, 0) > 0, f"{name} not launched in phase 2b")
     # the folded epilogue is the distributed packed pipeline's (phase 3b);
     # a meshless plan refuses it, as the reference does
@@ -5659,6 +5687,9 @@ def main() -> int:
                            "src/repro/kernels/spectral_scale.py:41"),
         "spectral_scale_full": ("spectral_scale",
                                 "src/repro/kernels/spectral_scale.py:74"),
+        # no pallas_call: the reference builds the Poisson multiplier at
+        # full shape and runs spectral_scale_full
+        "spectral_scale_poisson": ("spectral_scale", None),
         "flash_attention": ("flash_attention",
                             "src/repro/kernels/flash_attention.py:95"),
     }

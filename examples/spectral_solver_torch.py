@@ -22,8 +22,8 @@ wall; ``--tune model`` picks analytically with zero execution, and
 PATH``; only rank 0 writes it).  ``--strategy`` forces the r2c strategy
 on the default pencil plan instead.
 
-The Poisson solve runs the fused spectral epilogue
-(``Croft3D.forward_filtered``): one forward plus one inverse.  The
+The Poisson solve is one forward, one k-space multiply that computes
+-1/k^2 from the three wavenumber vectors in the pass, and one inverse.  The
 Burgers steps check that viscosity dissipates energy.
 """
 

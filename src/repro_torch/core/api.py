@@ -11,7 +11,8 @@ transform; ``problem="r2c"`` plans a real-input transform whose forward
 matches ``torch.fft.rfftn`` and whose inverse is the exact c2r — the
 packed two-for-one pipeline or the embedding (``repro_torch.real``,
 ``strategy=``).  ``forward_filtered`` fuses a k-space multiply into the
-forward; :func:`poisson_solve` is the spectral solver built on it.
+forward; :func:`poisson_solve` is a spectral solver whose multiply
+computes -1/k² in the pass.
 
 Every transform is differentiable: ``loss.backward()`` runs the adjoint
 schedule of the plan (``repro_torch.grad``), with a mesh on every rank
@@ -35,7 +36,10 @@ from repro_torch.core import distributed
 from repro_torch.core.decomposition import Decomposition, spec_slices
 from repro_torch.core.distributed import FFTOptions
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as metrics_lib
 from repro_torch.obs.tracer import span
+
+POISSON_FUSED = "poisson_fused_multipliers"
 
 
 @dataclasses.dataclass
@@ -409,36 +413,35 @@ def poisson_solve(rhs: torch.Tensor, plan: Croft3D,
     """Spectral Poisson solve  ∇²u = f  on a periodic box (example app).
 
     Works with both problem classes: a c2c plan sees the full spectrum, an
-    r2c plan the Hermitian half (kz from ``rfftfreq``).  The 1/(-k²)
-    multiplier is fused into the forward transform as a schedule
-    epilogue (``plan.forward_filtered``).  With a mesh, ``rhs`` is this
-    rank's input block and the multiplier is cut to its
-    ``output_sharding`` block.
+    r2c plan the Hermitian half (kz from ``rfftfreq``).  The multiplier
+    1/(-k²) is computed inside the k-space multiply from the three 1-D
+    wavenumber vectors (``kernels/spectral_scale.py:poisson_scale``), one
+    pass over the forward's output: no tensor of the spectrum's shape
+    holds it.  With a mesh, ``rhs`` is this rank's input block and the
+    vectors are cut to its ``output_sharding`` block.  The vectors, k²
+    and -1/k² are float32 for every plan dtype, a complex128 plan's
+    included (-1/k² to about 6e-8 relative).  Each solve counts one on
+    the ``poisson_fused_multipliers`` counter.
     """
+    from repro_torch.grad import vjp
     nx, ny, nz = plan.shape
     dev = plan.device
     with span("poisson:solve", "plan", problem=plan.problem):
         with span("poisson:multiplier", "epilogue", dev):
             kx = torch.fft.fftfreq(nx, d=box / (2 * math.pi * nx),
-                                   device=dev)
+                                   dtype=torch.float32, device=dev)
             ky = torch.fft.fftfreq(ny, d=box / (2 * math.pi * ny),
-                                   device=dev)
-            if plan.problem == "r2c":
-                kz = torch.fft.rfftfreq(nz, d=box / (2 * math.pi * nz),
-                                        device=dev)
-            else:
-                kz = torch.fft.fftfreq(nz, d=box / (2 * math.pi * nz),
-                                       device=dev)
+                                   dtype=torch.float32, device=dev)
+            freq = (torch.fft.rfftfreq if plan.problem == "r2c"
+                    else torch.fft.fftfreq)
+            kz = freq(nz, d=box / (2 * math.pi * nz), dtype=torch.float32,
+                      device=dev)
             if plan.mesh is not None:
                 sx, sy, sz = plan.output_sharding
                 kx, ky, kz = kx[sx], ky[sy], kz[sz]
-            k2 = (kx[:, None, None] ** 2 + ky[None, :, None] ** 2
-                  + kz[None, None, :] ** 2)
-            inv_k2 = torch.where(k2 == 0, 0.0,
-                                 -1.0 / torch.where(k2 == 0, 1.0, k2))
-            h = inv_k2.to(plan.dtype)
-        # h lives exactly as long as the call's argument did: the
-        # multiplier in the plan's dtype dies before the inverse
-        u_hat = plan.forward_filtered(rhs.to(plan.input_dtype), h)
-        del h
+        u_hat = plan.forward(rhs.to(plan.input_dtype))
+        u_hat = vjp.poisson_scale(u_hat, kx, ky, kz)
+        metrics_lib.get_registry().counter(
+            POISSON_FUSED, "Poisson solves whose -1/k^2 was computed inside "
+            "the k-space multiply").inc()
         return plan.inverse(u_hat)

@@ -144,6 +144,36 @@ def spectral_scale(s: torch.Tensor, h: torch.Tensor,
     return ss.spectral_scale(s, h, alpha)
 
 
+class PoissonScale(torch.autograd.Function):
+    """``y = alpha * s * h`` with the Poisson multiplier ``h = -1/k²``
+    computed in the multiply from the wavenumber vectors
+    (``kernels/spectral_scale.py:poisson_scale``).  ``h`` is real, so the
+    cotangent ``alpha * g * conj(h)`` is the same multiply of ``g``."""
+
+    @staticmethod
+    def forward(ctx, s, kx, ky, kz, alpha):
+        from repro_torch.kernels import spectral_scale as ss
+        ctx.save_for_backward(kx, ky, kz)
+        ctx.alpha = alpha
+        return ss.poisson_scale(s, kx, ky, kz, alpha)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import spectral_scale as ss
+        return (ss.poisson_scale(g, *ctx.saved_tensors, ctx.alpha),
+                None, None, None, None)
+
+
+def poisson_scale(s: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor,
+                  kz: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """The Poisson multiply, differentiable in ``s``; the plain kernel
+    dispatch when ``s`` needs no gradient."""
+    if needs_grad(s):
+        return PoissonScale.apply(s, kx, ky, kz, alpha)
+    from repro_torch.kernels import spectral_scale as ss
+    return ss.poisson_scale(s, kx, ky, kz, alpha)
+
+
 # ---------------------------------------------------------------------------
 # complex transform (every c2c plan, meshless included): y = scale * F x
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ transpose_pack  rotated-block pack/unpack of the ring and pairwise
                 transposes (``csrc/rotate_blocks.cu``)
 hermitian       two-for-one Hermitian split and extend of the packed real
                 transforms (``csrc/hermitian.cu``)
-spectral_scale  fused k-space multiply, the spectral epilogue
+spectral_scale  fused k-space multiply, the spectral epilogue, and the
+                Poisson solve's multiply with -1/k^2 computed in the pass
                 (``csrc/spectral_scale.cu``)
 flash_attention fused causal/windowed GQA attention, the LM prefill:
                 bf16 on the tensor cores, float32 in FFMA

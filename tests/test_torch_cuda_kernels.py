@@ -6,6 +6,8 @@ compiled for sm_90a by nvcc at first use).  On a machine with the card:
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -420,7 +422,7 @@ def test_croft3d_r2c_meshless_runs_the_kernels(cuda_device):
     back = plan.inverse(y)
     u = poisson_solve(x - x.mean(), plan)
     after = launch_counts()
-    for name in (hermitian.UNPACK, hermitian.EXTEND, spectral_scale.FULL):
+    for name in (hermitian.UNPACK, hermitian.EXTEND, spectral_scale.POISSON):
         assert after[name] > before.get(name, 0)
     ref = torch.fft.rfftn(x)
     assert (y - ref).abs().max().item() < 5e-5 * ref.abs().max().item()
@@ -828,6 +830,59 @@ def test_spectral_scale_streams_bitwise(cuda_device, n, x_offset, h_offset,
     got = _launched(spectral_scale.BROADCAST, lambda: spectral_scale.
                     spectral_scale_planes(x, hb, alpha))
     assert torch.equal(got, spectral_scale.spectral_scale_plain(x, hb, alpha))
+
+
+def _wavenumbers(dev, n, box, real=False):
+    """``poisson_solve``'s vector of an axis of n points: k ≠ integer when
+    box ≠ 2π, so every k² rounds."""
+    freq = torch.fft.rfftfreq if real else torch.fft.fftfreq
+    return freq(n, d=box / (2 * math.pi * n), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 7, 33), (3, 4, 513), (2, 1, 1),
+                                   (1, 3, 2), (9, 5, 33)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("alpha", [1.0, 0.25])
+def test_poisson_scale_kernel_bitwise(cuda_device, shape, offset, alpha):
+    """The Poisson multiply against its plain version, to the bit: odd
+    widths (a vector across a row and a plane boundary), a base 8 bytes
+    past a 16-byte boundary, alpha ≠ 1, and k = 0 held."""
+    nx, ny, nz = shape
+    x = _offset_randn(cuda_device, math.prod(shape), offset,
+                      nz + offset).view(shape)
+    for box in (2 * math.pi, 3.7):
+        k = (_wavenumbers(cuda_device, nx, box),
+             _wavenumbers(cuda_device, ny, box),
+             _wavenumbers(cuda_device, 2 * nz - 2, box, real=True)
+             if nz > 1 else _wavenumbers(cuda_device, 1, box))
+        got = _launched(spectral_scale.POISSON,
+                        lambda: spectral_scale.poisson_scale(x, *k, alpha))
+        want = spectral_scale.poisson_scale_plain(x, *k, alpha)
+        assert torch.equal(got, want), box
+        assert got.data_ptr() % 16 == x.data_ptr() % 16
+
+
+@pytest.mark.cuda
+def test_poisson_scale_long_stream(cuda_device):
+    """Many blocks, a column pattern that never lines up with the
+    vectors: (256, 256, 513), bitwise."""
+    shape = (256, 256, 513)
+    x = _offset_randn(cuda_device, math.prod(shape), 0, 513).view(shape)
+    k = (_wavenumbers(cuda_device, 256, 3.7),) * 2 + (
+        _wavenumbers(cuda_device, 1024, 3.7, real=True),)
+    assert torch.equal(spectral_scale.poisson_scale(x, *k, 0.5),
+                       spectral_scale.poisson_scale_plain(x, *k, 0.5))
+
+
+@pytest.mark.cuda
+def test_poisson_scale_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(4, 2, 8, dtype=torch.complex64, device=cuda_device)
+    k = [torch.zeros(n, device=cuda_device) for n in (4, 2, 8)]
+    with pytest.raises(TypeError, match="float32"):
+        spectral_scale.poisson_scale(x, k[0].double(), k[1], k[2])
+    with pytest.raises(ValueError, match="cuda"):
+        spectral_scale.poisson_scale(x, k[0], k[1].cpu(), k[2])
 
 
 @pytest.mark.cuda

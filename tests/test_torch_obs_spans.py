@@ -28,12 +28,12 @@ C2C_NESTING = {
 POISSON_NESTING = {
     "poisson:solve": {None},
     "poisson:multiplier": {"poisson:solve"},
-    "croft3d:forward_filtered": {"poisson:solve"},
+    "croft3d:forward": {"poisson:solve"},
     "croft3d:inverse": {"poisson:solve"},
-    "real:pack_two": {"croft3d:forward_filtered"},
-    "real:unpack_two": {"croft3d:forward_filtered"},
-    "real:unfold_dc_plane": {"croft3d:forward_filtered"},
-    "stage:fft": {"croft3d:forward_filtered", "croft3d:inverse"},
+    "real:pack_two": {"croft3d:forward"},
+    "real:unpack_two": {"croft3d:forward"},
+    "real:unfold_dc_plane": {"croft3d:forward"},
+    "stage:fft": {"croft3d:forward", "croft3d:inverse"},
     "real:fold_dc_plane": {"croft3d:inverse"},
     "real:repack_halves": {"croft3d:inverse"},
     "real:split_pairs": {"croft3d:inverse"},
@@ -141,7 +141,8 @@ def test_profiled_ranges_nest(case, tmp_path):
 @pytest.mark.parametrize("solves", [1, 2, 3])
 def test_profiled_counts_equal_the_calls(solves, tmp_path):
     """Each Poisson solve and each meshless c2c round trip opens 3
-    ``stage:fft`` spans a direction and one ``inverse:normalize``."""
+    ``stage:fft`` spans a direction, one ``croft3d:forward`` and one
+    ``inverse:normalize``."""
     solve, roundtrip = r2c_poisson(), c2c_roundtrip()
 
     def run():
@@ -151,7 +152,7 @@ def test_profiled_counts_equal_the_calls(solves, tmp_path):
     _, record = profiled_trace(run, tmp_path)
     assert record["poisson:multiplier"]["count"] == solves
     assert record["poisson:solve"]["count"] == solves
-    assert record["croft3d:forward"]["count"] == solves
+    assert record["croft3d:forward"]["count"] == 2 * solves
     assert record["stage:fft"]["count"] == 12 * solves
     assert record["inverse:normalize"]["count"] == 2 * solves
     assert all(r["host_s"] > 0 and r["device_s"] is None
